@@ -1,0 +1,293 @@
+"""Building blocks of the denoiser (port of emx/nn/blocks.py).
+
+Every module here is the twin of a flax module of the same class name,
+and its children carry the names flax gives them (`Conv_0`, `Norm_0`,
+`SepConvBlock_1`, ...), so a module's dotted name in `named_modules()`
+is its flax parameter path with "/" for ".". Activations are NHWC;
+each conv permutes to a channels-last NCHW view around the
+`torch.nn.functional` call, which costs no copy. Weights are OIHW.
+Parameters stay float32 and are cast to the module's dtype per call,
+as flax's `dtype=` does.
+
+Padding follows XLA's SAME rule: a stride-2 3x3 conv on an even size
+pads (0, 1), a dilated 3x3 conv pads `rate` on each side.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def same_pads(size: int, kernel: int, stride: int,
+              dilation: int = 1) -> tuple[int, int]:
+    """XLA's SAME padding (low, high) for one spatial axis."""
+    out = -(-size // stride)
+    span = (kernel - 1) * dilation + 1
+    total = max((out - 1) * stride + span - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int = 1,
+             dilation: int = 1) -> torch.Tensor:
+    """Zero-pad an NHWC tensor by the SAME rule, so a conv with padding
+    0 gives XLA's SAME result."""
+    top, bottom = same_pads(x.shape[1], kernel, stride, dilation)
+    left, right = same_pads(x.shape[2], kernel, stride, dilation)
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (0, 0, left, right, top, bottom))
+
+
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+              dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """SAME conv of an NHWC tensor with an OIHW weight; NHWC out."""
+    k = weight.shape[-1]
+    x = pad_same(x, k, stride, dilation)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, 0,
+                 dilation, groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class Conv(nn.Module):
+    """Twin of flax `nn.Conv(padding="SAME")`. The bias is added after
+    the conv, in the compute dtype, as flax does."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 1,
+                 strides: int = 1, rate: int = 1, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.zeros(features, cin // groups, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.kernel, self.strides, self.rate = kernel, strides, rate
+        self.groups, self.dtype = groups, dtype
+        self.path = ""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv_nhwc(x.to(self.dtype), self.weight.to(self.dtype),
+                      self.strides, self.rate, self.groups)
+        return y + self.bias.to(self.dtype)
+
+
+class ConvTranspose(nn.Module):
+    """Twin of flax `nn.ConvTranspose((3, 3), strides=(2, 2), "SAME")`.
+    The weight holds the flax kernel flipped in space, as (I, O, 3, 3):
+    torch's transposed conv with padding 0, cropped to (2H, 2W), then
+    equals flax's."""
+
+    def __init__(self, cin: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cin, features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+        self.path = ""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                               self.weight.to(self.dtype), None, 2)
+        y = y[:, :, :2 * h, :2 * w].permute(0, 2, 3, 1).contiguous()
+        return y + self.bias.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Twin of flax `nn.GroupNorm` (eps 1e-6): statistics in float32,
+    output in the module's dtype."""
+
+    def __init__(self, channels: int, groups: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.groups, self.dtype = groups, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.groups,
+                         self.weight.float(), self.bias.float(), eps=1e-6)
+        return y.permute(0, 2, 3, 1).to(self.dtype).contiguous()
+
+
+class BatchNorm(nn.Module):
+    """Twin of flax `nn.BatchNorm(epsilon=1e-3)` at inference: the
+    running mean and variance normalise."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = self.weight * torch.rsqrt(self.var + 1e-3)
+        y = (x.float() - self.mean) * mul + self.bias
+        return y.to(self.dtype)
+
+
+class Norm(nn.Module):
+    """Twin of emx.nn.blocks.Norm: 'none', 'group' or 'batch'."""
+
+    def __init__(self, kind: str, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.kind = kind
+        if kind == "group":
+            groups = min(32, channels)
+            while channels % groups:
+                groups -= 1
+            self.GroupNorm_0 = GroupNorm(channels, groups, dtype)
+        elif kind == "batch":
+            self.BatchNorm_0 = BatchNorm(channels, dtype)
+        elif kind == "instance":
+            raise NotImplementedError(
+                "norm='instance' is not ported yet (ROADMAP.md Queue 1)")
+        elif kind != "none":
+            raise ValueError(f"unknown norm kind {kind!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "group":
+            return self.GroupNorm_0(x)
+        if self.kind == "batch":
+            return self.BatchNorm_0(x)
+        return x
+
+
+class ConvBlock(nn.Module):
+    """Conv -> norm -> relu6."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3,
+                 strides: int = 1, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(cin, features, kernel, strides, dtype=dtype)
+        self.Norm_0 = Norm(norm, features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(self.Norm_0(self.Conv_0(x)))
+
+
+class SepConvBlock(nn.Module):
+    """Depthwise 3x3 (stride, dilation) -> pointwise 1x1 -> norm -> relu6."""
+
+    def __init__(self, cin: int, features: int, strides: int = 1,
+                 rate: int = 1, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(cin, cin, 3, strides, rate, groups=cin,
+                           dtype=dtype)
+        self.Conv_1 = Conv(cin, features, 1, dtype=dtype)
+        self.Norm_0 = Norm(norm, features, dtype)
+        self.strides, self.rate, self.norm = strides, rate, norm
+        self.activation = relu6
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.activation(self.Norm_0(self.Conv_1(self.Conv_0(x))))
+
+
+def _resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(..., "linear") for upsampling, on NHWC."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class DeconvBlock(nn.Module):
+    """2x upsample -> norm -> relu6: a transposed conv ('transpose') or
+    bilinear resize + separable conv ('resize_sep')."""
+
+    def __init__(self, cin: int, features: int, norm: str = "batch",
+                 mode: str = "resize_sep",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.mode, self.dtype = mode, dtype
+        if mode == "transpose":
+            self.ConvTranspose_0 = ConvTranspose(cin, features, dtype)
+            self.Norm_0 = Norm(norm, features, dtype)
+        elif mode == "resize_sep":
+            self.SepConvBlock_0 = SepConvBlock(cin, features, norm=norm,
+                                               dtype=dtype)
+        else:
+            raise ValueError(f"unknown upsample mode {mode!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "transpose":
+            return relu6(self.Norm_0(self.ConvTranspose_0(x)))
+        h, w = x.shape[1], x.shape[2]
+        x = _resize_bilinear(x, (2 * h, 2 * w)).to(self.dtype)
+        return self.SepConvBlock_0(x)
+
+
+def _avg_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
+    """flax avg_pool((2, 2), strides=(2, 2), padding="SAME") on NHWC:
+    padded zeros count in the mean."""
+    x = pad_same(x, 2, 2)
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling: a 1x1 branch, one dilated 3x3
+    branch per rate, a 2x2 average-pooled 1x1 branch resized back,
+    concatenated and projected by a 1x1 ConvBlock."""
+
+    def __init__(self, cin: int, filters: int = 728,
+                 out_features: int = 256, rates=(6, 12, 18),
+                 norm: str = "batch", separable: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        kw = dict(norm=norm, dtype=dtype)
+        self.ConvBlock_0 = ConvBlock(cin, filters, kernel=1, **kw)
+        self.branches = []
+        n_conv = 0
+        for i, rate in enumerate(rates):
+            if separable:
+                name = f"SepConvBlock_{i}"
+                self.add_module(name, SepConvBlock(cin, filters, rate=rate,
+                                                   **kw))
+                self.branches.append((name, None))
+                continue
+            conv, nrm = f"Conv_{n_conv}", f"Norm_{n_conv}"
+            n_conv += 1
+            self.add_module(conv, Conv(cin, filters, 3, rate=rate,
+                                       dtype=dtype))
+            self.add_module(nrm, Norm(norm, filters, dtype))
+            self.branches.append((conv, nrm))
+        self.pool_conv, self.pool_norm = f"Conv_{n_conv}", f"Norm_{n_conv}"
+        self.add_module(self.pool_conv, Conv(cin, filters, 1, dtype=dtype))
+        self.add_module(self.pool_norm, Norm(norm, filters, dtype))
+        self.ConvBlock_1 = ConvBlock(filters * (len(rates) + 2),
+                                     out_features, kernel=1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self._modules
+        out = [self.ConvBlock_0(x)]
+        for first, nrm in self.branches:
+            b = m[first](x)
+            out.append(b if nrm is None else relu6(m[nrm](b)))
+        pooled = m[self.pool_conv](_avg_pool_2x2_same(x))
+        pooled = _resize_bilinear(pooled, (x.shape[1], x.shape[2]))
+        out.append(relu6(m[self.pool_norm](pooled)))
+        return self.ConvBlock_1(torch.cat(out, dim=-1))
+
+
+class XceptionMiddleBlock(nn.Module):
+    """Three separable convs + identity residual."""
+
+    def __init__(self, features: int, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"SepConvBlock_{i}", SepConvBlock(
+                features, features, norm=norm, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(3):
+            h = self._modules[f"SepConvBlock_{i}"](h)
+        return h + x

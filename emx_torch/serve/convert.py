@@ -1,0 +1,73 @@
+"""Carry flax parameters into the port's modules.
+
+The input is the flat `{"A/B/Conv_0/kernel": array}` dict of a bundle
+(or of `flax.traverse_util.flatten_dict(params, sep="/")`). Each port
+module's dotted name is its flax path, so every parameter has exactly
+one key. Layouts change on the way in:
+
+  * conv kernels go from HWIO to OIHW (a depthwise (3, 3, 1, C) kernel
+    becomes (C, 1, 3, 3));
+  * transposed-conv kernels are also flipped in space, to (I, O, 3, 3);
+  * norm `scale` becomes `weight`; BatchNorm `mean`/`var` come from
+    the `batch_stats` collection.
+
+Anything left over on either side raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from emx_torch.nn.blocks import BatchNorm, Conv, ConvTranspose, GroupNorm
+
+
+def _source(mod: nn.Module, name: str):
+    """(collection, flax leaf name, layout change) of a port tensor."""
+    if name == "weight" and isinstance(mod, ConvTranspose):
+        return ("params", "kernel",
+                lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1))
+    if name == "weight" and isinstance(mod, Conv):
+        return "params", "kernel", lambda k: k.transpose(3, 2, 0, 1)
+    if name == "weight" and isinstance(mod, (GroupNorm, BatchNorm)):
+        return "params", "scale", None
+    if name in ("mean", "var") and isinstance(mod, BatchNorm):
+        return "batch_stats", name, None
+    return "params", name, None
+
+
+def load_flax_params(model: nn.Module, params: dict[str, np.ndarray],
+                     batch_stats: dict[str, np.ndarray] | None = None
+                     ) -> nn.Module:
+    """Fill `model` in place from flat flax dicts; returns `model`.
+
+    Raises KeyError for a port tensor with no key, ValueError for a
+    shape mismatch or for keys that no port tensor used."""
+    flat = {"params": dict(params), "batch_stats": dict(batch_stats or {})}
+    used: dict[str, set] = {"params": set(), "batch_stats": set()}
+    with torch.no_grad():
+        for mname, mod in model.named_modules():
+            prefix = mname.replace(".", "/")
+            tensors = list(mod.named_parameters(recurse=False)) + list(
+                mod.named_buffers(recurse=False))
+            for name, t in tensors:
+                coll, leaf, change = _source(mod, name)
+                key = f"{prefix}/{leaf}" if prefix else leaf
+                if key not in flat[coll]:
+                    raise KeyError(f"no {coll} entry {key!r} for port "
+                                   f"tensor {mname}.{name}")
+                a = np.array(flat[coll][key], dtype=np.float32)
+                if change is not None:
+                    a = change(a)
+                if tuple(a.shape) != tuple(t.shape):
+                    raise ValueError(f"{coll} {key!r}: shape {a.shape} "
+                                     f"does not fit {tuple(t.shape)}")
+                t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+                used[coll].add(key)
+    for coll, entries in flat.items():
+        unused = sorted(set(entries) - used[coll])
+        if unused:
+            raise ValueError(f"{len(unused)} {coll} entries unused by the "
+                             f"port: {unused[:5]}")
+    return model

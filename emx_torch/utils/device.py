@@ -1,0 +1,26 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. CUDA is the default; the CPU
+    is used only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run on the CPU")
+    return device
+
+
+def card_name_and_power() -> str:
+    """nvidia-smi's name and power limit of the first card, as
+    `--query-gpu=name,power.limit --format=csv,noheader` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

@@ -1,0 +1,63 @@
+"""The port stands alone: emx_torch, chip_smoke.py and the card-only
+tests import neither JAX, flax, ml_dtypes nor the emx package, at module
+level or in a function body (the machine with the card has none of
+them)."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "ml_dtypes", "emx")
+PORT_FILES = sorted((ROOT / "emx_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+
+
+def _imported_names(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("__import__", "import_module")):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_forbidden_import(path):
+    names = list(_imported_names(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_with_jax_blocked():
+    """Every emx_torch module and chip_smoke import in a process where
+    jax, flax and ml_dtypes cannot be imported, and none reaches emx."""
+    code = """
+import importlib, pkgutil, sys
+for m in ("jax", "flax", "ml_dtypes"):
+    sys.modules[m] = None
+import emx_torch
+names = [m.name for m in pkgutil.walk_packages(emx_torch.__path__,
+                                               "emx_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = [m for m in sys.modules if m == "emx" or m.startswith("emx.")
+       or (m.split(".")[0] in ("jax", "flax", "ml_dtypes")
+           and sys.modules[m] is not None)]
+assert not bad, bad
+print(len(names))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 14
