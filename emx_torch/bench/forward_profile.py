@@ -29,7 +29,10 @@ from emx_torch.serve.quantize import quantized_apply
 from emx_torch.utils.device import card_name_and_power
 
 
-def profile_forward(fn, x: torch.Tensor, n: int = 5) -> dict:
+def profile_forward(fn, x: torch.Tensor, n: int = 5,
+                    match: str | None = None) -> dict:
+    """Profile n calls fn(x) after 3 warm-up calls; with `match`, also the
+    device ms per call of the kernels whose name contains it."""
     for _ in range(3):
         fn(x)
     torch.cuda.synchronize()
@@ -48,10 +51,13 @@ def profile_forward(fn, x: torch.Tensor, n: int = 5) -> dict:
             launches += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "kernels_per_forward": launches / n,
-            "top_kernels_ms": [[k[:90], round(v, 4)] for k, v in top]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall_ms),
+           "kernels_per_forward": launches / n,
+           "top_kernels_ms": [[k[:90], round(v, 4)] for k, v in top]}
+    if match is not None:
+        out["matched_ms"] = sum(v for k, v in by_name.items() if match in k)
+    return out
 
 
 def main() -> None:

@@ -48,6 +48,11 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
               dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """SAME conv of an NHWC tensor with an OIHW weight; NHWC out."""
     k = weight.shape[-1]
+    if k == 1 and stride > 1:
+        # A strided 1x1 conv reads every stride-th pixel; slicing first is
+        # the same conv, and it avoids a crash of the multi-threaded
+        # oneDNN backward of a strided channels-last 1x1 conv on the CPU.
+        x, stride = x[:, ::stride, ::stride, :], 1
     x = pad_same(x, k, stride, dilation)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, 0,
                  dilation, groups)
@@ -114,8 +119,18 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Twin of flax `nn.BatchNorm(epsilon=1e-3)` at inference: the
-    running mean and variance normalise."""
+    """Twin of flax `nn.BatchNorm(momentum=0.99, epsilon=1e-3)`.
+
+    At inference the running mean and variance normalise. In training
+    the batch's statistics over N, H and W do, in float32, with flax's
+    one-pass biased variance max(E[x^2] - E[x]^2, 0); the running
+    statistics then move to 0.99 * running + 0.01 * batch (not
+    `F.batch_norm`'s update, which stores the unbiased variance).
+    `update_stats` False skips that move: a rematerialised block's
+    second forward must not take it again."""
+
+    MOMENTUM = 0.99
+    EPS = 1e-3
 
     def __init__(self, channels: int, dtype: torch.dtype):
         super().__init__()
@@ -124,10 +139,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
         self.dtype = dtype
+        self.update_stats = True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = self.weight * torch.rsqrt(self.var + 1e-3)
-        y = (x.float() - self.mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        # Statistics in at least float32, as flax's force_float32_reductions.
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            dims = tuple(range(xf.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp(xf.square().mean(dims) - mean.square(), min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.mean.mul_(self.MOMENTUM).add_(
+                        (1.0 - self.MOMENTUM) * mean.detach())
+                    self.var.mul_(self.MOMENTUM).add_(
+                        (1.0 - self.MOMENTUM) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.EPS) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(self.dtype)
 
 
@@ -150,11 +180,11 @@ class Norm(nn.Module):
         elif kind != "none":
             raise ValueError(f"unknown norm kind {kind!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.kind == "group":
             return self.GroupNorm_0(x)
         if self.kind == "batch":
-            return self.BatchNorm_0(x)
+            return self.BatchNorm_0(x, train)
         return x
 
 
@@ -168,8 +198,8 @@ class ConvBlock(nn.Module):
         self.Conv_0 = Conv(cin, features, kernel, strides, dtype=dtype)
         self.Norm_0 = Norm(norm, features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return relu6(self.Norm_0(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return relu6(self.Norm_0(self.Conv_0(x), train))
 
 
 class SepConvBlock(nn.Module):
@@ -186,8 +216,8 @@ class SepConvBlock(nn.Module):
         self.strides, self.rate, self.norm = strides, rate, norm
         self.activation = relu6
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.activation(self.Norm_0(self.Conv_1(self.Conv_0(x))))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.activation(self.Norm_0(self.Conv_1(self.Conv_0(x)), train))
 
 
 def _resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -215,12 +245,12 @@ class DeconvBlock(nn.Module):
         else:
             raise ValueError(f"unknown upsample mode {mode!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.mode == "transpose":
-            return relu6(self.Norm_0(self.ConvTranspose_0(x)))
+            return relu6(self.Norm_0(self.ConvTranspose_0(x), train))
         h, w = x.shape[1], x.shape[2]
         x = _resize_bilinear(x, (2 * h, 2 * w)).to(self.dtype)
-        return self.SepConvBlock_0(x)
+        return self.SepConvBlock_0(x, train)
 
 
 def _avg_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
@@ -264,16 +294,18 @@ class ASPP(nn.Module):
         self.ConvBlock_1 = ConvBlock(filters * (len(rates) + 2),
                                      out_features, kernel=1, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         m = self._modules
-        out = [self.ConvBlock_0(x)]
+        out = [self.ConvBlock_0(x, train)]
         for first, nrm in self.branches:
-            b = m[first](x)
-            out.append(b if nrm is None else relu6(m[nrm](b)))
+            if nrm is None:
+                out.append(m[first](x, train))
+            else:
+                out.append(relu6(m[nrm](m[first](x), train)))
         pooled = m[self.pool_conv](_avg_pool_2x2_same(x))
         pooled = _resize_bilinear(pooled, (x.shape[1], x.shape[2]))
-        out.append(relu6(m[self.pool_norm](pooled)))
-        return self.ConvBlock_1(torch.cat(out, dim=-1))
+        out.append(relu6(m[self.pool_norm](pooled, train)))
+        return self.ConvBlock_1(torch.cat(out, dim=-1), train)
 
 
 class XceptionMiddleBlock(nn.Module):
@@ -286,8 +318,8 @@ class XceptionMiddleBlock(nn.Module):
             self.add_module(f"SepConvBlock_{i}", SepConvBlock(
                 features, features, norm=norm, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = x
         for i in range(3):
-            h = self._modules[f"SepConvBlock_{i}"](h)
+            h = self._modules[f"SepConvBlock_{i}"](h, train)
         return h + x

@@ -8,17 +8,22 @@ names, so each module's `path` is its flax parameter path.
 
 Only the plain and folded heads are ported; `full_res_head`,
 `mid_res_head` and `kernel_pred_head` raise NotImplementedError.
+`forward(x, train=True)` trains (BatchNorm on batch statistics), with
+the middle blocks rematerialised under `remat_middle`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from emx_torch.nn.blocks import (ASPP, ConvBlock, DeconvBlock, SepConvBlock,
-                                 XceptionMiddleBlock, _resize_bilinear)
+from emx_torch.nn.blocks import (ASPP, BatchNorm, ConvBlock, DeconvBlock,
+                                 SepConvBlock, XceptionMiddleBlock,
+                                 _resize_bilinear)
 from emx_torch.utils.device import resolve_device
 
 
@@ -72,7 +77,8 @@ _OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class Denoiser(nn.Module):
     def __init__(self, config: DenoiserConfig = DenoiserConfig(),
                  device: str | torch.device = "cuda"):
-        """Parameters start at zero; emx_torch.serve.convert fills them."""
+        """Parameters start at zero: emx_torch.serve.convert fills them
+        from a bundle, emx_torch.nn.init.init_parameters from a seed."""
         super().__init__()
         device = resolve_device(device)
         cfg = self.config = config
@@ -150,9 +156,25 @@ class Denoiser(nn.Module):
         self.add_module(name, mod)
         return name
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _middle_block(self, name: str, h: torch.Tensor,
+                      train: bool) -> torch.Tensor:
+        """One Xception middle block; with `remat_middle` in training its
+        activations are recomputed in the backward pass (flax nn.remat).
+        The recomputation runs with the block's BatchNorm updates off, so
+        the running statistics move once per step, as under flax."""
+        block = self._modules[name]
+        if not (self.config.remat_middle and train
+                and torch.is_grad_enabled()):
+            return block(h, train)
+        return checkpoint(block, h, train, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _frozen_stats(block)))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, H, W) or (B, H, W, 1) input -> prediction of that shape,
-        clipped to [0, 1] in `out_dtype`."""
+        clipped to [0, 1] in `out_dtype`. `train` normalises BatchNorm by
+        the batch's statistics and updates the running ones, as flax's
+        `train=True` with `mutable=["batch_stats"]` does."""
         cfg = self.config
         m = self._modules
         squeeze = x.dim() == 3
@@ -167,37 +189,50 @@ class Denoiser(nn.Module):
         taps = []
         h = x
         for sep_a, sep_b, down, res in self._encoder:
-            a = m[sep_b](m[sep_a](h))
-            h = m[down](a) + m[res](h)
+            a = m[sep_b](m[sep_a](h, train), train)
+            h = m[down](a, train) + m[res](h, train)
             taps.append(h)
         a = h
         for name in self._block4:
-            a = m[name](a)
+            a = m[name](a, train)
         h = a + h
         for name in self._middle:
-            h = m[name](h)
-        h = m[self._aspp](h)
+            h = self._middle_block(name, h, train)
+        h = m[self._aspp](h, train)
 
         h = _resize_bilinear(h, (h.shape[1] * 4, h.shape[2] * 4))
         h = h.to(cfg.dtype)
         for (sep_a, sep_b, skip, deconv), tap in zip(self._decoder,
                                                      (taps[1], taps[0])):
             cat = torch.cat([h, tap], dim=-1)
-            d = m[sep_b](m[sep_a](cat))
-            d = d + m[skip](cat)
-            h = m[deconv](d)
+            d = m[sep_b](m[sep_a](cat, train), train)
+            d = d + m[skip](cat, train)
+            h = m[deconv](d, train)
 
         sep_a, sep_b, skip = self._refine
-        d = m[sep_b](m[sep_a](h)) + m[skip](h)
+        d = m[sep_b](m[sep_a](h, train), train) + m[skip](h, train)
         if self._folded is not None:
             seps, skip = self._folded
             cat = torch.cat([d, _space_to_depth(x_in, s2d)], dim=-1)
             r = cat
             for name in seps:
-                r = m[name](r)
-            d = r + m[skip](cat)
-        out = m[self._head](d)
+                r = m[name](r, train)
+            d = r + m[skip](cat, train)
+        out = m[self._head](d, train)
         if s2d > 1:
             out = _depth_to_space(out, s2d)
         out = torch.clamp(out.to(_OUT_DTYPES[cfg.out_dtype]), 0.0, 1.0)
         return out[..., 0] if squeeze else out
+
+
+@contextlib.contextmanager
+def _frozen_stats(module: nn.Module):
+    """BatchNorm running-statistic updates off inside `module`."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in norms:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in norms:
+            bn.update_stats = True

@@ -33,7 +33,7 @@ _built: dict[str, "Built"] = {}
 class Built:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # nvcc's wall time; 0.0 if the library existed
+    seconds: float  # wall time until its nvcc ended; 0.0 if it existed
     log: str        # nvcc's output: ptxas registers and shared memory
 
 
@@ -47,26 +47,56 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _library(name: str) -> Path:
+    """Where `csrc/<name>.cu`, built with NVCC_FLAGS, lives."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def load_all(names) -> dict[str, Built]:
+    """Compile each `csrc/<name>.cu` whose library does not exist, one
+    nvcc process per source, all started together; load them all. On a
+    failure the other nvcc processes are killed and nvcc's output raised."""
+    with _lock:
+        todo = [n for n in dict.fromkeys(names) if n not in _built]
+        procs: dict[str, tuple] = {}
+        done: dict[str, tuple[float, str]] = {}
+        t0 = time.perf_counter()
+        try:
+            for name in todo:
+                so = _library(name)
+                if so.exists():
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
+                proc = subprocess.Popen(
+                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                procs[name] = (proc, tmp, so)
+            for name, (proc, tmp, so) in procs.items():
+                log = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+                os.replace(tmp, so)
+                # Wall time from the common start: builds overlap.
+                done[name] = (time.perf_counter() - t0, log)
+        finally:
+            for proc, tmp, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                tmp.unlink(missing_ok=True)
+        for name in todo:
+            so = _library(name)
+            seconds, log = done.get(name, (0.0, ""))
+            _built[name] = Built(ctypes.CDLL(str(so)), so, seconds, log)
+        return {n: _built[n] for n in names}
+
+
 def load(name: str) -> Built:
     """Compile `csrc/<name>.cu` unless its library exists; load it."""
-    with _lock:
-        if name in _built:
-            return _built[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}_{digest}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f"{so.name}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(src)], capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-            os.replace(tmp, so)
-        _built[name] = Built(ctypes.CDLL(str(so)), so, seconds, log)
-        return _built[name]
+    return load_all([name])[name]

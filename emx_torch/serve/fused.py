@@ -76,7 +76,9 @@ class FusedSepConv(nn.Module):
             "pw", pw.weight.detach().float().permute(2, 3, 1, 0).contiguous())
         self.register_buffer("pw_bias", pw.bias.detach().float().contiguous())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise ValueError("the fused serving graph does not train")
         if not _qualifies(self.block, x, self.min_pixels):
             return self.block(x)
         rows = row_band(x.shape[1], self.rows)

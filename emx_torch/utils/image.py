@@ -28,3 +28,24 @@ def psnr(pred: torch.Tensor, truth: torch.Tensor,
 def sanitize(img: torch.Tensor, fill: float = 0.5) -> torch.Tensor:
     """Replace NaN/Inf with `fill`."""
     return torch.where(torch.isfinite(img), img, torch.full_like(img, fill))
+
+
+# D4 transform `choice` as (transpose, flip rows, flip columns), applied in
+# that order; the rows follow emx's branch order: identity, rot90 x1, x2,
+# x3, flip(0), flip(1), flip(rot90, 0), flip(rot90, 1).
+_D4 = ((0, 0, 0), (1, 1, 0), (0, 1, 1), (1, 0, 1),
+       (0, 1, 0), (0, 0, 1), (1, 0, 0), (1, 1, 1))
+
+
+def flip_rotate(imgs: torch.Tensor, choices: torch.Tensor) -> torch.Tensor:
+    """Apply to each square image of a (B, H, H) batch the D4 transform
+    `choices[b]` in [0, 8), as emx's flip_rotate does to one image.
+    No host synchronisation: every image goes through three selects."""
+    if imgs.dim() != 3 or imgs.shape[-1] != imgs.shape[-2]:
+        raise ValueError(f"flip_rotate takes (B, H, H), got {tuple(imgs.shape)}")
+    table = torch.tensor(_D4, dtype=torch.bool, device=imgs.device)
+    flags = table[choices.to(imgs.device).long()][:, :, None, None]
+    out = torch.where(flags[:, 0], imgs.transpose(-1, -2), imgs)
+    out = torch.where(flags[:, 1], out.flip(-2), out)
+    # where() may lay its output out like the transposed view.
+    return torch.where(flags[:, 2], out.flip(-1), out).contiguous()
