@@ -13,15 +13,19 @@ non-zero and prints no result):
              each, started together; seconds and the ptxas register /
              shared-memory lines.
   3. kernel  K1 (fused_sepconv) against its plain PyTorch version on the
-             card, at the six flagship shapes (B=8, 128x128, bf16) and
-             two ragged ones; CUDA-event times of the kernel, the plain
-             version and the cuDNN depthwise + pointwise pair, and the
-             card's least time for the same work.
+             card, at the six flagship shapes at B=8 (one batch-8
+             forward's fused blocks) and at B=1 (the server's latency
+             regime), 128x128, bf16, and two ragged ones; the kernel's
+             schedule (channels per pass, band, grid, shared memory);
+             CUDA-event times of the kernel, the plain version and the
+             cuDNN depthwise + pointwise pair, the card's least time for
+             the same work and the share of it the kernel reaches.
   4. degrade K2 (fused_poisson_degrade) against its plain version,
-             element by element, at (16, 512, 512) with training doses
-             and on constant images at rates 0.5 to 200; times of the
-             kernel, the plain version and torch.poisson + min/max +
-             rescale, and the card's least time for this data.
+             identical on every element, at (16, 512, 512) with training
+             doses and on constant images at rates 0.5 to 200, one launch
+             per call; its schedule; times of the kernel, the plain
+             version and torch.poisson + min/max + rescale, and the
+             card's least time for this data.
   5. serve   emx_torch.serve.server.serve_artifact on the flagship int8
              bundle with fused_rows=32: 512x512 requests and one
              1024x768 (tiled) request over HTTP. Checks shape, finite
@@ -54,7 +58,6 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
-import math
 import os
 import statistics
 import tempfile
@@ -65,11 +68,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from emx_torch.bench.kernel_times import (FLAGSHIP_BLOCKS, device_ms,
+                                          host_paced_ms, sepconv_inputs)
 from emx_torch.bench.train_profile import FLAGSHIP_TRAIN
 from emx_torch.data import (DeviceDataset, PipelineConfig, denoiser_example,
                             synthetic_micrographs)
 from emx_torch.nn import Denoiser, DenoiserConfig
-from emx_torch.ops import _build
+from emx_torch.ops import _build, degrade_kernel, sepconv_kernel
 from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
                                           poisson_counts_reference,
                                           poisson_degrade_reference)
@@ -115,11 +120,10 @@ TIMING_BATCHES = (1, 8)
 
 # (name, B, H, W, C, Co): the six fused SepConvBlocks of one flagship
 # forward at a 512x512 tile (emx/nn/denoiser.py:235-236, 281-282, 294-295).
-FLAGSHIP_SHAPES = (
-    ("enc0.a", 8, 128, 128, 16, 64), ("enc0.b", 8, 128, 128, 64, 64),
-    ("refine.a", 8, 128, 128, 128, 64), ("refine.b", 8, 128, 128, 64, 64),
-    ("folded.a", 8, 128, 128, 80, 128), ("folded.b", 8, 128, 128, 128, 128),
-)
+FLAGSHIP_SHAPES = tuple((name, 8, *rest) for name, *rest in FLAGSHIP_BLOCKS)
+# The same blocks at batch 1, the server's latency regime.
+FLAGSHIP_SHAPES_B1 = tuple((f"{name}@b1", 1, *rest)
+                           for name, _, *rest in FLAGSHIP_SHAPES)
 RAGGED_SHAPES = (("ragged728", 1, 32, 32, 728, 728),
                  ("ragged20", 1, 130, 66, 20, 24))
 
@@ -162,29 +166,24 @@ def phase_build() -> dict:
     return out
 
 
-def _sepconv_inputs(rng, b, h, w, c, co, device):
-    x = torch.from_numpy(rng.uniform(0.0, 6.0, (b, h, w, c)).astype(
-        np.float32)).to(device, torch.bfloat16)
-    dw = torch.from_numpy(rng.normal(0, 0.3, (3, 3, 1, c)).astype(np.float32))
-    dwb = torch.from_numpy(rng.normal(0, 0.1, (c,)).astype(np.float32))
-    pw = torch.from_numpy(rng.normal(0, 1 / math.sqrt(c), (1, 1, c, co))
-                          .astype(np.float32))
-    pwb = torch.from_numpy(rng.normal(0, 0.1, (co,)).astype(np.float32))
-    return x, *(t.to(device) for t in (dw, dwb, pw, pwb))
+def both_times(prefix: str, fn, iters: int = 20) -> dict:
+    """`fn`'s ms per call two ways: `<prefix>ms` host-paced (CUDA events
+    around calls issued back to back, the kernels line's `ms` since it
+    began) and `<prefix>device_ms` with the calls queued ahead of the
+    card, so the card's own time even where the host's share of a call
+    is the larger."""
+    return {f"{prefix}ms": host_paced_ms(fn, iters=iters),
+            f"{prefix}device_ms": device_ms(fn, iters=iters)}
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call of `fn` on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+TIMED_KEYS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+              "library_device_ms", "bound_ms")
+
+
+def flagship_sums(results: list[dict], batch: int) -> dict:
+    """Each time summed over the six flagship blocks at `batch`."""
+    timed = [r for r in results if "ms" in r and r["shape"][0] == batch]
+    return {k: sum(r[k] for r in timed) for k in TIMED_KEYS}
 
 
 def sepconv_bound_ms(b, h, w, c, co) -> tuple[float, str]:
@@ -198,18 +197,26 @@ def sepconv_bound_ms(b, h, w, c, co) -> tuple[float, str]:
                                        else "operations")
 
 
+def _sepconv_schedule(device: torch.device, b, h, w, c, co) -> str:
+    """The kernel's plan for this shape on the card, as one phrase."""
+    plan = sepconv_kernel.card_plan(device.index or 0, b, h, w, c, co)
+    return (f"kc {plan.kc}, nc {plan.nc}, band {plan.band}, grid "
+            f"{plan.grid}, {plan.smem} B shared")
+
+
 def phase_kernel(device: torch.device,
-                 shapes=FLAGSHIP_SHAPES + RAGGED_SHAPES) -> list[dict]:
+                 shapes=FLAGSHIP_SHAPES + FLAGSHIP_SHAPES_B1 + RAGGED_SHAPES
+                 ) -> list[dict]:
     """K1 against its plain version on `device`, timed at the flagship
-    shapes on the card. Tolerance: one bf16 rounding step of the output,
-    |k - r| <= 2^-7 |r| + 1e-3, since the kernel sums the pointwise
-    product in another order than the plain version's matmul (its bf16
-    depthwise intermediate is bit-identical)."""
+    shapes (B=8 and B=1) on the card. Tolerance: one bf16 rounding step
+    of the output, |k - r| <= 2^-7 |r| + 1e-3, since the kernel sums the
+    pointwise product in another order than the plain version's matmul
+    (its bf16 depthwise intermediate is bit-identical)."""
     rng = np.random.default_rng(0)
     results = []
     for shape in shapes:
         name, b, h, w, c, co = shape
-        x, dw, dwb, pw, pwb = _sepconv_inputs(rng, b, h, w, c, co, device)
+        x, dw, dwb, pw, pwb = sepconv_inputs(rng, b, h, w, c, co, device)
         rows = row_band(h, 32)
         got = fused_sepconv(x, dw, dwb, pw, pwb, rows=rows)
         ref = sepconv_reference(x, dw, dwb, pw, pwb)
@@ -225,7 +232,10 @@ def phase_kernel(device: torch.device,
                "max_abs_err": max_abs, "max_rel_err": max_rel}
         line = (f"{name} B={b} {h}x{w} C={c}->Co={co}: max_abs={max_abs:.3e}"
                 f" max_rel={max_rel:.3e} tol=2^-7|r|+1e-3")
-        if shape in FLAGSHIP_SHAPES and device.type == "cuda":
+        if device.type == "cuda":
+            line += f"; {_sepconv_schedule(device, b, h, w, c, co)}"
+        if (shape in FLAGSHIP_SHAPES + FLAGSHIP_SHAPES_B1
+                and device.type == "cuda"):
             xn = x.permute(0, 3, 1, 2)
             w_dw = dw.reshape(3, 3, c).permute(2, 0, 1)[:, None].to(
                 torch.bfloat16).contiguous()
@@ -237,29 +247,47 @@ def phase_kernel(device: torch.device,
                 y = F.conv2d(xn, w_dw, b_dw, padding=1, groups=c)
                 return F.conv2d(y, w_pw, b_pw).clamp_(0.0, 6.0)
 
-            res["ms"] = cuda_ms(lambda: fused_sepconv(x, dw, dwb, pw, pwb,
-                                                      rows=rows))
-            res["plain_ms"] = cuda_ms(
-                lambda: sepconv_reference(x, dw, dwb, pw, pwb), iters=5)
-            res["library_ms"] = cuda_ms(library)
+            def kernel():
+                return fused_sepconv(x, dw, dwb, pw, pwb, rows=rows)
+
+            res.update(both_times("", kernel))
+            res.update(both_times(
+                "plain_", lambda: sepconv_reference(x, dw, dwb, pw, pwb),
+                iters=5))
+            res.update(both_times("library_", library))
             res["bound_ms"], res["bound_by"] = sepconv_bound_ms(b, h, w, c, co)
-            line += (f"; kernel {res['ms']:.4f} ms, plain "
-                     f"{res['plain_ms']:.4f} ms, cuDNN pair "
-                     f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f}"
-                     f" ms ({res['bound_by']})")
+            line += (f"; kernel {res['device_ms']:.4f} ms (host-paced "
+                     f"{res['ms']:.4f}), plain "
+                     f"{res['plain_device_ms']:.4f} ms, cuDNN pair "
+                     f"{res['library_device_ms']:.4f} ms (host-paced "
+                     f"{res['library_ms']:.4f}), bound {res['bound_ms']:.4f}"
+                     f" ms ({res['bound_by']}), share of the bound "
+                     f"{res['bound_ms'] / res['device_ms']:.3f}")
         log("kernel", line)
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"{name}: max_abs={max_abs}")
         results.append(res)
+    if device.type == "cuda":
+        card = card_name_and_power()
+        for batch in (8, 1):
+            sums = flagship_sums(results, batch)
+            log("kernel", f"six flagship blocks at B={batch}: kernel "
+                f"{sums['device_ms']:.4f} ms (host-paced {sums['ms']:.4f}), "
+                f"plain {sums['plain_device_ms']:.4f} ms, cuDNN pair "
+                f"{sums['library_device_ms']:.4f} ms (host-paced "
+                f"{sums['library_ms']:.4f}), bound {sums['bound_ms']:.4f} "
+                f"ms, share of the bound "
+                f"{sums['bound_ms'] / sums['device_ms']:.3f}; on {card}")
     return results
 
 
-# K2 against its plain version: at most this share of the elements may
-# differ (an ulp of expf/logf/cosf flips a CDF comparison or a round), and
-# per-image means must agree within this.
-K2_MAX_DIFFERING = 1e-4
-K2_MEAN_TOL = 1e-4
+# K2 against its plain version: the same Philox words and the same
+# float32 operations in the same order, both on the card's libdevice, so
+# every element agrees (no element may differ), and so do the per-image
+# means.
+K2_MAX_DIFFERING = 0.0
+K2_MEAN_TOL = 0.0
 K2_RATES = (0.5, 5.0, 9.5, 10.5, 200.0)   # constant-image checks
 
 
@@ -296,18 +324,25 @@ def degrade_bound_ms(imgs: torch.Tensor, scales: torch.Tensor,
 
 def _compare_degrade(name: str, seed: int, imgs: torch.Tensor,
                      scales: torch.Tensor, device: torch.device) -> dict:
+    before = fused_poisson_degrade.launches
     got = fused_poisson_degrade(seed, imgs, scales)
+    launches = fused_poisson_degrade.launches - before
     ref = poisson_degrade_reference(seed, imgs, scales)
     _sync(device)
     diff = (got - ref).abs()
     share = float((diff > 0).double().mean())
     mean_err = float((got.mean(dim=(1, 2)) - ref.mean(dim=(1, 2))).abs().max())
+    expected = 1 if device.type == "cuda" else 0
     res = {"name": name, "shape": list(imgs.shape),
            "max_abs_err": float(diff.max()), "differing": share,
-           "mean_err": mean_err}
+           "mean_err": mean_err, "launches_per_call": launches}
     log("degrade", f"{name} {tuple(imgs.shape)}: {share:.3e} of elements "
         f"differ (tol {K2_MAX_DIFFERING}), per-image mean err "
-        f"{mean_err:.3e} (tol {K2_MEAN_TOL}), max abs {res['max_abs_err']:.3e}")
+        f"{mean_err:.3e} (tol {K2_MEAN_TOL}), max abs {res['max_abs_err']:.3e}"
+        f"; kernel launches in the call {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"K2 launched {launches} kernels in one call "
+                             f"at {name}, expected {expected}")
     if not (share <= K2_MAX_DIFFERING and mean_err <= K2_MEAN_TOL
             and bool(torch.isfinite(got).all())):
         raise AssertionError(f"K2 disagrees with its plain version at "
@@ -326,11 +361,15 @@ def _time_degrade(seed: int, imgs: torch.Tensor,
         span = torch.amax(c, dim=(1, 2), keepdim=True) - lo
         return torch.where(span > 0, (c - lo) / span, 0.5)
 
-    out = {"ms": cuda_ms(lambda: fused_poisson_degrade(seed, imgs, scales)),
-           "plain_ms": cuda_ms(
+    def kernel():
+        return fused_poisson_degrade(seed, imgs, scales)
+
+    # The plain version waits for the card inside a call (device_ms could
+    # not queue its calls ahead of the card), so it is timed host-paced.
+    out = {**both_times("", kernel), **both_times("library_", library),
+           "plain_ms": host_paced_ms(
                lambda: poisson_degrade_reference(seed, imgs, scales),
-               iters=5),
-           "library_ms": cuda_ms(library)}
+               iters=5)}
     counts = poisson_counts_reference(seed, imgs, scales)
     rate = imgs * scales[:, None, None]
     out["bound_ms"], out["bound_by"] = degrade_bound_ms(imgs, scales, counts)
@@ -356,10 +395,18 @@ def phase_degrade(device: torch.device, b: int = 16,
         res = _compare_degrade(name, seed, imgs, scales, device)
         if device.type == "cuda":
             res.update(_time_degrade(seed, imgs, scales))
+            plan = degrade_kernel.card_plan(
+                device.index or 0, imgs.shape[0],
+                imgs.shape[1] * imgs.shape[2])
+            log("degrade", f"{name}: one cooperative launch of {plan.grid} "
+                f"blocks, {plan.ipb} items of {degrade_kernel.TILE} "
+                f"elements each")
             log("degrade", f"{name} {tuple(imgs.shape)}: kernel "
-                f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-                f"torch.poisson + min/max + rescale {res['library_ms']:.4f}"
-                f" ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+                f"{res['device_ms']:.4f} ms (host-paced {res['ms']:.4f}), "
+                f"plain {res['plain_ms']:.4f} ms (host-paced), "
+                f"torch.poisson + min/max + rescale "
+                f"{res['library_device_ms']:.4f} ms (host-paced "
+                f"{res['library_ms']:.4f}), bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
                 f"operations alone {res['ops_ms']:.4f} ms); "
                 f"rate < 10 on {res['small_rate_share']:.3f} of the "
                 f"elements; on {card}")
@@ -495,7 +542,7 @@ def phase_serve(device: torch.device, cfg: SmokeConfig) -> dict:
             # Turns of unfused and fused, in one process on one card.
             for name, fn in (("int8", int8), ("fused", fused),
                              ("fused", fused), ("int8", int8)):
-                ms = cuda_ms(lambda: fn(xb), iters=10, warmup=2)
+                ms = host_paced_ms(lambda: fn(xb), iters=10, warmup=2)
                 key = f"{name}_b{bsz}"
                 result["forward_ms"].setdefault(key, []).append(ms)
             log("serve", f"forward at batch {bsz}, ms per {cfg.tile}x"
@@ -697,25 +744,30 @@ def phase_deploy(device: torch.device, trained: dict,
 
 def kernels_line(kernel_results: list[dict], launches: int,
                  degrade: dict, degrade_launches: int) -> dict:
-    """K1: times summed over the six flagship shapes (one B=8 forward's
-    fused blocks), error over every shape checked, launches on the serving
-    path. K2: times at the training batch (16, 512, 512), error over every
-    check, launches on the training path."""
-    timed = [r for r in kernel_results if "ms" in r]
-
-    def total(key):
-        return sum(r[key] for r in timed) if timed else None
-
+    """K1: times summed over the six flagship shapes at B=8 (one B=8
+    forward's fused blocks), and at B=1 under `b1`; error over every
+    shape checked, launches on the serving path. K2: times at the
+    training batch (16, 512, 512), error over every check, launches on
+    the training path. `ms`, `plain_ms` and `library_ms` are host-paced,
+    as the line has given them from the start; `device_ms` and
+    `library_device_ms` are the card's own times (`both_times`)."""
+    on_card = any("ms" in r for r in kernel_results)
+    sums = flagship_sums(kernel_results, 8) if on_card else {}
+    b1 = flagship_sums(kernel_results, 1) if on_card else {}
     return {"kernels": [{
         "name": "K1 fused_sepconv", "route": "cuda",
         "source": "emx_torch/csrc/sepconv.cu",
         "replaces": "emx/ops/sepconv_kernel.py:71",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in kernel_results),
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": timed[0]["bound_by"] if timed else "bytes",
-        "library_ms": total("library_ms"),
+        "ms": sums.get("ms"), "plain_ms": sums.get("plain_ms"),
+        "bound_ms": sums.get("bound_ms"),
+        "bound_by": next((r["bound_by"] for r in kernel_results
+                          if "ms" in r and r["shape"][0] == 8), "bytes"),
+        "library_ms": sums.get("library_ms"),
+        "device_ms": sums.get("device_ms"),
+        "library_device_ms": sums.get("library_device_ms"),
+        "b1": {k: b1.get(k) for k in TIMED_KEYS},
     }, {
         "name": "K2 fused_poisson_degrade", "route": "cuda",
         "source": "emx_torch/csrc/degrade.cu",
@@ -726,6 +778,8 @@ def kernels_line(kernel_results: list[dict], launches: int,
         "bound_ms": degrade.get("bound_ms"),
         "bound_by": degrade.get("bound_by", "bytes"),
         "library_ms": degrade.get("library_ms"),
+        "device_ms": degrade.get("device_ms"),
+        "library_device_ms": degrade.get("library_device_ms"),
     }]}
 
 
@@ -739,8 +793,9 @@ def main() -> None:
     served = phase_serve(device, SmokeConfig())
     trained = phase_train(device, TrainSmokeConfig())
     deployed = phase_deploy(device, trained, DeploySmokeConfig())
-    log("train", f"K2 {degraded['ms']:.4f} ms of the {trained['step_ms']:.2f}"
-        f" ms step: {degraded['ms'] / trained['step_ms']:.4%}")
+    log("train", f"K2 {degraded['device_ms']:.4f} ms of the "
+        f"{trained['step_ms']:.2f} ms step: "
+        f"{degraded['device_ms'] / trained['step_ms']:.4%}")
     print(json.dumps(kernels_line(kernel_results, served["launches"],
                                   degraded, trained["launches"])),
           flush=True)

@@ -33,25 +33,51 @@
 // What bounds it: 4 bytes read and 4 written per element, 33.5 MB for a
 // (16, 512, 512) batch, about 10 us at 3.35 TB/s; the Philox rounds and
 // the sampler are roughly 130 operations per element, about 8 us at the
-// float32 rate, so bytes set the bound, narrowly. Design: two passes over
-// a grid of (tiles of 2048 elements, B), 128 blocks per 512x512 image, so
-// a B = 16 batch spreads over all 132 SMs (one block per image would use
-// 16). Pass 1 draws, samples and stores the counts, reduces min and max in
-// the block and merges them with atomicMin / atomicMax on the float bits
-// as unsigned (counts are >= +0, where that order is the float order).
-// Pass 2 rescales in place. The cost of two passes: pass 2 reads and
-// writes the batch once more (16 MB each way at B = 16, largely from the
-// 50 MB L2), up to twice the byte bound.
+// float32 rate, so bytes set the bound, narrowly.
+//
+// Design: one cooperative launch (cudaLaunchCooperativeKernel), no
+// memsets. The batch is cut into items of TILE = 4096 elements of one
+// image; a persistent grid, sized by the host from the occupancy query,
+// gives each block `ipb` items a grid apart (items blockIdx.x,
+// blockIdx.x + gridDim.x, ...), so that an SM's blocks hold tiles of
+// many images (an element's cost depends on its image's dose: the CDF
+// loop runs about `rate` terms).
+// * Phase 1: each thread samples its 16 elements of an item, four Philox
+//   chains at a time so that their latency overlaps, and writes the
+//   counts to out. Each item's min and max are reduced in the warp and
+//   the block and written to its own slot of a scratch buffer of 2 x
+//   items floats: every slot is written, so nothing needs a memset.
+// * grid.sync(). (No -rdc: since CUDA 12 cooperative groups' grid sync
+//   needs no relocatable device code.)
+// * Phase 2: for each item it holds, a block reduces the item partials
+//   of its image, then each thread rescales in place the counts it wrote
+//   itself (a (16, 512, 512) batch, 16.8 MB, fits in the 50 MB L2).
+//   Keeping the counts in shared memory between the phases instead took
+//   2% off the kernel's time on the card (PERF.md, §6) for a second
+//   schedule; the kernel keeps one.
+//
+// What sets its time on the card is neither the bytes nor a fixed cost:
+// the time grows with the elements and with the share of them below rate
+// 10. The exact arithmetic (Philox's integer products, the correctly
+// rounded divisions and square roots, logf and cosf) is issue-bound on
+// the CUDA cores; the operation count in chip_smoke.py's bound counts
+// each of those as one operation. On the card this one launch is slower
+// than a counting kernel followed by a rescaling kernel (PERF.md, §6).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int THREADS = 256;
-constexpr int PER_THREAD = 8;
-constexpr int TILE = THREADS * PER_THREAD;  // elements per block
+constexpr int WARPS = THREADS / 32;
+constexpr int PER_THREAD = 16;
+constexpr int CHAINS = 4;                   // Philox chains in flight
+constexpr int TILE = THREADS * PER_THREAD;  // elements per item
 constexpr int INV_TERMS = 32;
 
 struct Words {
@@ -102,94 +128,146 @@ __device__ __forceinline__ float sample_count(float rate, uint32_t bits0,
   return k > 0.0f ? k : 0.0f;  // also maps -0 and NaN to +0
 }
 
-__global__ void __launch_bounds__(THREADS)
-degrade_counts(const float* __restrict__ imgs, const float* __restrict__ scales,
-               float* __restrict__ out, unsigned* __restrict__ lo_bits,
-               unsigned* __restrict__ hi_bits, long long hw, uint32_t key0,
-               uint32_t key1) {
-  const unsigned b = blockIdx.y;
-  const float scale = scales[b];
-  const size_t base = static_cast<size_t>(b) * hw;
-  float lo = __int_as_float(0x7F800000), hi = 0.0f;
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const long long e = static_cast<long long>(blockIdx.x) * TILE +
-                        i * THREADS + threadIdx.x;
-    if (e >= hw) break;
-    const float rate = __fmul_rn(imgs[base + e], scale);
-    const Words r = philox4x32_10(
-        Words{static_cast<uint32_t>(e), static_cast<uint32_t>(e >> 32), b, 0u},
-        key0, key1);
-    const float k = sample_count(rate, r.x, r.y);
-    out[base + e] = k;
-    lo = fminf(lo, k);
-    hi = fmaxf(hi, k);
-  }
+// Min and max over the block, returned to every thread.
+__device__ __forceinline__ void block_minmax(float& lo, float& hi,
+                                             float* red) {
   for (int off = 16; off; off >>= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xFFFFFFFFu, lo, off));
     hi = fmaxf(hi, __shfl_xor_sync(0xFFFFFFFFu, hi, off));
   }
-  __shared__ float warp_lo[THREADS / 32], warp_hi[THREADS / 32];
   const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) {
-    warp_lo[warp] = lo;
-    warp_hi[warp] = hi;
+    red[warp] = lo;
+    red[WARPS + warp] = hi;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < THREADS / 32; ++w) {
-      lo = fminf(lo, warp_lo[w]);
-      hi = fmaxf(hi, warp_hi[w]);
-    }
-    atomicMin(lo_bits + b, __float_as_uint(lo));
-    atomicMax(hi_bits + b, __float_as_uint(hi));
+  for (int w = 0; w < WARPS; ++w) {
+    lo = fminf(lo, red[w]);
+    hi = fmaxf(hi, red[WARPS + w]);
   }
+  __syncthreads();  // red may be written again
 }
 
-__global__ void __launch_bounds__(THREADS)
-degrade_rescale(float* __restrict__ out, const unsigned* __restrict__ lo_bits,
-                const unsigned* __restrict__ hi_bits, long long hw) {
-  const unsigned b = blockIdx.y;
-  const float lo = __uint_as_float(lo_bits[b]);
-  const float span = __fsub_rn(__uint_as_float(hi_bits[b]), lo);
-  const float inv = span > 0.0f ? __fdiv_rn(1.0f, span) : 0.0f;
-  const size_t base = static_cast<size_t>(b) * hw;
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const long long e = static_cast<long long>(blockIdx.x) * TILE +
-                        i * THREADS + threadIdx.x;
-    if (e >= hw) break;
-    out[base + e] =
-        span > 0.0f ? __fmul_rn(__fsub_rn(out[base + e], lo), inv) : 0.5f;
+// At most 64 registers, so that 4 blocks (1,024 threads) fit on an SM.
+__global__ void __launch_bounds__(THREADS, 4)
+degrade_kernel(const float* __restrict__ imgs, const float* __restrict__ scales,
+               float* __restrict__ out, float* __restrict__ part,
+               long long hw, int tiles, long long items, int ipb,
+               uint32_t key0, uint32_t key1) {
+  __shared__ float red[2 * WARPS];
+
+  // Phase 1: sample, write the counts, one (min, max) per item.
+  for (int s = 0; s < ipb; ++s) {
+    const long long item = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+    if (item >= items) break;
+    const unsigned b = static_cast<unsigned>(item / tiles);
+    const long long e0 = (item % tiles) * TILE;
+    const float scale = scales[b];
+    const size_t base = static_cast<size_t>(b) * hw;
+    float lo = __int_as_float(0x7F800000), hi = 0.0f;
+    for (int g = 0; g < PER_THREAD; g += CHAINS) {
+      Words r[CHAINS];
+      float rate[CHAINS];
+#pragma unroll
+      for (int j = 0; j < CHAINS; ++j) {
+        const long long e = e0 + (g + j) * THREADS + threadIdx.x;
+        rate[j] = e < hw ? __fmul_rn(imgs[base + e], scale) : 0.0f;
+        r[j] = philox4x32_10(Words{static_cast<uint32_t>(e),
+                                   static_cast<uint32_t>(e >> 32), b, 0u},
+                             key0, key1);
+      }
+#pragma unroll
+      for (int j = 0; j < CHAINS; ++j) {
+        const int i = (g + j) * THREADS + threadIdx.x;
+        if (e0 + i >= hw) continue;
+        const float k = sample_count(rate[j], r[j].x, r[j].y);
+        out[base + e0 + i] = k;
+        lo = fminf(lo, k);
+        hi = fmaxf(hi, k);
+      }
+    }
+    block_minmax(lo, hi, red);
+    if (threadIdx.x == 0) {
+      part[item] = lo;
+      part[items + item] = hi;
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // Phase 2: per-image min and max from the item partials, then rescale.
+  long long image = -1;
+  float lo = 0.0f, span = 0.0f, inv = 0.0f;
+  for (int s = 0; s < ipb; ++s) {
+    const long long item = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+    if (item >= items) break;
+    const long long b = item / tiles;
+    if (b != image) {  // the same for the whole block
+      float l = __int_as_float(0x7F800000), h = 0.0f;
+      for (int t = threadIdx.x; t < tiles; t += THREADS) {
+        l = fminf(l, __ldcg(part + b * tiles + t));
+        h = fmaxf(h, __ldcg(part + items + b * tiles + t));
+      }
+      block_minmax(l, h, red);
+      image = b;
+      lo = l;
+      span = __fsub_rn(h, l);
+      inv = span > 0.0f ? __fdiv_rn(1.0f, span) : 0.0f;
+    }
+    const long long e0 = (item % tiles) * TILE;
+    float* o = out + static_cast<size_t>(b) * hw + e0;
+    for (int i = threadIdx.x; i < TILE && e0 + i < hw; i += THREADS) {
+      const float k = o[i];  // this thread's own count from phase 1
+      o[i] = span > 0.0f ? __fmul_rn(__fsub_rn(k, lo), inv) : 0.5f;
+    }
   }
 }
 
 }  // namespace
 
-// imgs (B, H, W) f32, scales (B) f32, out (B, H, W) f32, minmax (2, B)
-// 32-bit scratch; all contiguous, on one device; hw = H * W. Launches on
-// `stream` (scratch init, counts, rescale) and returns the first error.
+// Blocks of the kernel that fit on one SM, on the current device.
+extern "C" cudaError_t emx_degrade_occupancy(int* blocks) {
+  if (blocks == nullptr) return cudaErrorInvalidValue;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, degrade_kernel,
+                                                       THREADS, 0);
+}
+
+// imgs (B, H, W) f32, scales (B) f32, out (B, H, W) f32, part 2 x items
+// f32 scratch (items = B x ceil(hw / 4096)); all contiguous, on one device;
+// hw = H * W. ipb and grid are the wrapper's plan (degrade_plan). One
+// cooperative launch on `stream`; returns the first error,
+// cudaErrorCooperativeLaunchTooLarge if the grid cannot be co-resident.
 extern "C" cudaError_t emx_poisson_degrade(const void* imgs, const void* scales,
-                                           void* out, void* minmax, int B,
+                                           void* out, void* part, int B,
                                            long long hw,
-                                           unsigned long long seed,
-                                           cudaStream_t stream) {
-  if (B <= 0 || hw <= 0) return cudaErrorInvalidValue;
-  const long long tiles = (hw + TILE - 1) / TILE;
-  if (B > 65535 || tiles > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
-  unsigned* lo = static_cast<unsigned*>(minmax);
-  unsigned* hi = lo + B;
-  // min starts above every count's bits, max at +0.
-  cudaError_t err = cudaMemsetAsync(lo, 0xFF, sizeof(unsigned) * B, stream);
+                                           unsigned long long seed, int ipb,
+                                           int grid, cudaStream_t stream) {
+  if (B <= 0 || hw <= 0 || ipb <= 0 || grid <= 0)
+    return cudaErrorInvalidValue;
+  const long long tiles_ll = (hw + TILE - 1) / TILE;
+  if (tiles_ll > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
+  int tiles = static_cast<int>(tiles_ll);
+  long long items = static_cast<long long>(B) * tiles;
+  if (static_cast<long long>(grid) * ipb < items) return cudaErrorInvalidValue;
+  int per_sm = 0, device = 0, sms = 0;
+  cudaError_t err = emx_degrade_occupancy(&per_sm);
   if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(hi, 0, sizeof(unsigned) * B, stream);
+  err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(tiles), B);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0 || grid > per_sm * sms)
+    return cudaErrorCooperativeLaunchTooLarge;
+  const float* im = static_cast<const float*>(imgs);
+  const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
-  degrade_counts<<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(imgs), static_cast<const float*>(scales), o,
-      lo, hi, hw, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32));
-  err = cudaGetLastError();
+  float* pt = static_cast<float*>(part);
+  uint32_t key0 = static_cast<uint32_t>(seed);
+  uint32_t key1 = static_cast<uint32_t>(seed >> 32);
+  void* args[] = {&im, &sc, &o, &pt, &hw, &tiles, &items, &ipb, &key0, &key1};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(degrade_kernel),
+                                    dim3(grid), dim3(THREADS), args, 0,
+                                    stream);
   if (err != cudaSuccess) return err;
-  degrade_rescale<<<grid, THREADS, 0, stream>>>(o, lo, hi, hw);
   return cudaGetLastError();
 }

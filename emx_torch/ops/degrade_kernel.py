@@ -17,17 +17,21 @@ tensor it computes `poisson_degrade_reference`, the plain version, which
 draws the same Philox words and does the same arithmetic in the same
 order, so the two agree element for element up to the last bit of exp,
 log and cos.
+
+The kernel is one cooperative launch; `degrade_plan` is its schedule,
+computed here from the shapes and the card's SM count and occupancy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import threading
-
 import torch
 
 from emx_torch.ops import _build
+from emx_torch.utils.device import sm_count
 
 INV_TERMS = 32
 _MASK = 0xFFFFFFFF
@@ -35,6 +39,29 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # Philox multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 
 _count_lock = threading.Lock()
+
+TILE = 4096             # elements per work item (degrade.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradePlan:
+    tiles: int      # items per image
+    items: int      # B x tiles
+    ipb: int        # items per block, a grid apart
+    grid: int       # blocks of the cooperative launch
+
+
+def degrade_plan(b: int, hw: int, sms: int, blocks_per_sm: int
+                 ) -> DegradePlan:
+    """The kernel's schedule on a card of `sms` SMs, each holding
+    `blocks_per_sm` blocks (the occupancy query): the co-resident grid
+    takes the items in equal shares."""
+    if blocks_per_sm <= 0:
+        raise RuntimeError("the degrade kernel does not fit on an SM")
+    tiles = -(-hw // TILE)
+    items = b * tiles
+    ipb = -(-items // (blocks_per_sm * sms))
+    return DegradePlan(tiles, items, ipb, -(-items // ipb))
 
 
 def _mulhilo(a: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,10 +152,31 @@ def poisson_degrade_reference(seed: int, imgs: torch.Tensor,
 @functools.cache
 def _launcher():
     fn = _build.load("degrade").lib.emx_poisson_degrade
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _blocks_per_sm(device_index: int) -> int:
+    fn = _build.load("degrade").lib.emx_degrade_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"degrade occupancy query failed: CUDA error {err}")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=512)
+def card_plan(device_index: int, b: int, hw: int) -> DegradePlan:
+    """`degrade_plan` on this card, once per shape."""
+    return degrade_plan(b, hw, sm_count(device_index),
+                        _blocks_per_sm(device_index))
 
 
 def fused_poisson_degrade(seed: int, imgs: torch.Tensor,
@@ -157,13 +205,17 @@ def fused_poisson_degrade(seed: int, imgs: torch.Tensor,
         raise ValueError(f"no degrade kernel for device {imgs.device}")
     if b * h * w == 0:
         raise ValueError(f"empty input {tuple(imgs.shape)}")
+    dev = imgs.device.index if imgs.device.index is not None else \
+        torch.cuda.current_device()
+    plan = card_plan(dev, b, h * w)
     out = torch.empty_like(imgs)
-    minmax = torch.empty((2, b), dtype=torch.int32, device=imgs.device)
-    with torch.cuda.device(imgs.device):
+    part = torch.empty((2, plan.items), dtype=torch.float32,
+                       device=imgs.device)
+    with torch.cuda.device(dev):
         err = _launcher()(
             imgs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            minmax.data_ptr(), b, h * w, seed,
-            torch.cuda.current_stream(imgs.device).cuda_stream)
+            part.data_ptr(), b, h * w, seed, plan.ipb, plan.grid,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"degrade kernel launch failed: CUDA error {err}")
     with _count_lock:

@@ -44,6 +44,14 @@ def _host(out: Any) -> np.ndarray:
     return np.asarray(out, np.float32)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog of 128 instead of the
+    stdlib's 5, so that a burst of clients connecting at once is queued,
+    not reset (emx's server keeps the stdlib's 5)."""
+
+    request_queue_size = 128
+
+
 class _Pending:
     __slots__ = ("img", "event", "result", "error", "cancelled")
 
@@ -165,7 +173,7 @@ class InferenceServer:
                 np.save(buf, pending.result)
                 self._reply(200, buf.getvalue())
 
-        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.httpd = _HTTPServer((host, port), Handler)
         self.port = self.httpd.server_address[1]
 
     def _add(self, **deltas) -> None:

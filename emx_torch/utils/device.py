@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
 import torch
@@ -24,3 +25,9 @@ def card_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA card (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

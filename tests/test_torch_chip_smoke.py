@@ -83,10 +83,12 @@ def test_kernel_phase_and_report_lines(capsys):
     line = json.loads(json.dumps(chip_smoke.kernels_line(res, 7, degrade,
                                                          30)))
     k1, k2 = line["kernels"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms"}
+    assert set(k1) == keys | {"b1"} and set(k2) == keys
+    assert set(k1["b1"]) == set(chip_smoke.TIMED_KEYS)
     for k in (k1, k2):
-        assert set(k) == {"name", "route", "source", "replaces", "launches",
-                          "max_abs_err", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms"}
         assert k["route"] == "cuda"
     assert k1["launches"] == 7 and k2["launches"] == 30
     assert k1["source"] == "emx_torch/csrc/sepconv.cu"

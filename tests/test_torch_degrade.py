@@ -18,7 +18,8 @@ from emx.utils.image import flip_rotate as flax_flip_rotate
 from emx.ops.degrade_kernel import reference_poisson_degrade
 from emx_torch.data.degrade import denoiser_example, sample_dose_scale
 from emx_torch.ops import _build
-from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
+from emx_torch.ops.degrade_kernel import (TILE, degrade_plan,
+                                          fused_poisson_degrade,
                                           philox4x32_10,
                                           poisson_counts_reference)
 from emx_torch.utils.image import flip_rotate
@@ -192,14 +193,52 @@ def test_wrapper_checks_and_cpu_path():
 
 
 def test_kernel_source_is_self_contained():
-    """K2 carries its own Philox (no cuRAND, no torch headers) and is not
-    built with fast math, which would change expf/logf/cosf and the
-    divisions the plain version repeats."""
+    """K2 carries its own Philox (no cuRAND, no torch headers; only the
+    toolkit's cooperative groups for its grid-wide sync) and is not built
+    with fast math, which would change expf/logf/cosf and the divisions
+    the plain version repeats."""
     src = (_build.CSRC / "degrade.cu").read_text()
     includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
-    assert includes == ["#include <cuda_runtime.h>", "#include <cstdint>"]
+    assert includes == ["#include <cooperative_groups.h>",
+                        "#include <cuda_runtime.h>", "#include <cstdint>"]
     assert "0xD2511F53u" in src and "emx_poisson_degrade" in src
     assert not any("fast" in f for f in _build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("b,hw,ipb,grid", [
+    (16, 512 * 512, 2, 512),     # the training batch
+    (4, 512 * 512, 1, 256),
+    (1, 35, 1, 1),               # (1, 7, 5): one partial item
+    (1000, 35, 2, 500),          # many tiny images, one item each
+    (40, 512 * 512, 5, 512),
+    (64, 512 * 512, 8, 512),
+])
+def test_degrade_plan(b, hw, ipb, grid):
+    """The co-resident grid (4 blocks on each of 132 SMs) takes the items
+    in equal shares, as few blocks as that needs."""
+    plan = degrade_plan(b, hw, 132, 4)
+    assert plan.tiles == -(-hw // TILE) and plan.items == b * plan.tiles
+    assert (plan.ipb, plan.grid) == (ipb, grid)
+    assert (plan.grid - 1) * plan.ipb < plan.items <= plan.grid * plan.ipb
+    assert plan.grid <= 4 * 132
+    # The kernel's assignment: block k takes items k, k + grid, ... (ipb
+    # of them, those below `items`): every item exactly once.
+    taken = [k + s * plan.grid for k in range(plan.grid)
+             for s in range(plan.ipb) if k + s * plan.grid < plan.items]
+    assert sorted(taken) == list(range(plan.items))
+
+
+def test_degrade_plan_needs_a_block_per_sm():
+    with pytest.raises(RuntimeError, match="does not fit"):
+        degrade_plan(64, 512 * 512, 132, 0)
+
+
+def test_degrade_plan_follows_occupancy():
+    """With more blocks per SM the training batch needs fewer items per
+    block; with one block per SM it takes 8."""
+    assert degrade_plan(16, 512 * 512, 132, 8).ipb == 1
+    one = degrade_plan(16, 512 * 512, 132, 1)
+    assert (one.ipb, one.grid) == (8, 128)
 
 
 def test_dose_scale_matches_emx_in_distribution():

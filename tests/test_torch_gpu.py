@@ -8,6 +8,7 @@ JAX, run them without the JAX-importing conftest:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -15,16 +16,32 @@ import torch
 
 from emx_torch.data import denoiser_example, synthetic_micrographs
 from emx_torch.nn import Denoiser, DenoiserConfig
+from emx_torch.ops import degrade_kernel, sepconv_kernel
 from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
                                           poisson_degrade_reference)
 from emx_torch.ops.sepconv_kernel import fused_sepconv, sepconv_reference
 from emx_torch.train import TrainConfig, Trainer
+from emx_torch.utils.device import sm_count
 
 # (B, H, W, C, Co, rows): small and ragged shapes, a flagship fused
 # block (folded head, 80 -> 128) and the widest off-flagship tile.
 SHAPES = [(2, 32, 32, 16, 32, 16), (1, 24, 20, 20, 24, 8),
           (1, 130, 66, 20, 24, 26), (8, 128, 128, 80, 128, 32),
           (1, 32, 32, 728, 728, 32)]
+
+# Every edge of the kernel's schedule: C not a multiple of 16 (20) or of
+# 8 (element loads), Co ragged in a pass (20, 24), W of two pixel tiles
+# (200, the second ragged) and of one ragged tile (66), B x H not a
+# multiple of the band (3 x 211), Co > 128 over several passes, the six
+# flagship blocks at B=1, and 728 -> 728 on the channel-chunked schedule.
+SCHEDULE_SHAPES = [
+    (1, 9, 40, 20, 20, 9), (2, 17, 66, 16, 24, 17), (1, 12, 200, 64, 64, 12),
+    (1, 8, 200, 20, 24, 8), (3, 211, 30, 32, 48, 211),
+    (2, 10, 24, 36, 200, 10),
+    (1, 128, 128, 16, 64, 32), (1, 128, 128, 64, 64, 32),
+    (1, 128, 128, 128, 64, 32), (1, 128, 128, 80, 128, 32),
+    (1, 128, 128, 128, 128, 32), (1, 16, 16, 728, 728, 16),
+]
 
 
 @pytest.fixture
@@ -57,6 +74,41 @@ def test_kernel_matches_plain_version(cuda, shape):
     assert fused_sepconv.launches == before + 1
     ref = sepconv_reference(x, dw, dwb, pw, pwb).float()
     assert bool(((got - ref).abs() <= 2 ** -7 * ref.abs() + 1e-3).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SCHEDULE_SHAPES, ids=str)
+def test_kernel_schedule_edges(cuda, shape):
+    """The same bound at every edge of the schedule, and the bf16 h
+    exact: with a 1x1 identity pointwise weight and zero biases the
+    output is relu6(h), which the plain version computes exactly."""
+    x, dw, dwb, pw, pwb = _inputs(shape, cuda, seed=2)
+    b, h, w, c, co, rows = shape
+    got = fused_sepconv(x, dw, dwb, pw, pwb, rows=rows).float()
+    ref = sepconv_reference(x, dw, dwb, pw, pwb).float()
+    torch.cuda.synchronize()
+    assert bool(((got - ref).abs() <= 2 ** -7 * ref.abs() + 1e-3).all())
+    eye = torch.eye(c, device=cuda)[None, None]
+    zero = torch.zeros(c, device=cuda)
+    got = fused_sepconv(x, dw, dwb, eye, zero, rows=rows)
+    ref = sepconv_reference(x, dw, dwb, eye, zero)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_kernel_plan_on_the_card(cuda):
+    """The card's occupancy gives the planned schedule: the flagship
+    widest block keeps its whole window on chip, 728 channels chunk."""
+    dev = torch.cuda.current_device()
+    sms = sm_count(dev)
+    occ = functools.partial(sepconv_kernel._blocks_per_sm, dev)
+    wide = sepconv_kernel.sepconv_plan(8, 128, 128, 128, 128, sms, occ)
+    assert wide.kc == 128 and wide.grid <= sms * occ(128, wide.smem)
+    assert sepconv_kernel.sepconv_plan(1, 32, 32, 728, 728, sms,
+                                       occ).kc < 728
+    ragged = sepconv_kernel.sepconv_plan(3, 211, 30, 32, 48, sms, occ)
+    assert ragged.band > 1 and 211 % ragged.band
 
 
 @pytest.mark.gpu
@@ -105,6 +157,28 @@ def test_degrade_kernel_constant_rates(cuda, rate):
     ref = poisson_degrade_reference(5, imgs, scales)
     torch.cuda.synchronize()
     assert float((got != ref).double().mean()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(40, 512, 512), (1, 7, 5)], ids=str)
+def test_degrade_kernel_large_and_tiny_batches(cuda, shape):
+    """A batch that gives each block of the co-resident grid several
+    items (40 images of 512x512) and a tiny one (one partial item); each
+    is one launch and identical to the plain version on every element."""
+    dev = torch.cuda.current_device()
+    plan = degrade_kernel.card_plan(dev, shape[0], shape[1] * shape[2])
+    assert plan.grid * plan.ipb >= plan.items
+    assert plan.grid <= sm_count(dev) * degrade_kernel._blocks_per_sm(dev)
+    rng = np.random.default_rng(3)
+    imgs = torch.from_numpy(rng.random(shape).astype(np.float32)).to(cuda)
+    scales = torch.from_numpy(
+        (25 + 75 * rng.exponential(size=shape[0])).astype(np.float32)
+    ).to(cuda)
+    before = fused_poisson_degrade.launches
+    got = fused_poisson_degrade(77, imgs, scales)
+    torch.cuda.synchronize()
+    assert fused_poisson_degrade.launches == before + 1
+    assert torch.equal(got, poisson_degrade_reference(77, imgs, scales))
 
 
 @pytest.mark.gpu

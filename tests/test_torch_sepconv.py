@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from emx.ops.sepconv_kernel import fused_sepconv as pallas_sepconv
-from emx_torch.ops.sepconv_kernel import fused_sepconv, sepconv_reference
+from emx_torch.ops.sepconv_kernel import (SMEM_LIMIT, channel_chunk,
+                                          fused_sepconv, outputs_per_pass,
+                                          sepconv_plan, sepconv_reference,
+                                          smem_bytes)
 
 # (B, H, W, C, Co, rows): tests/test_ops_sepconv.py's shapes plus a
 # ragged C=20 -> Co=24 on a non-square image.
@@ -92,3 +95,88 @@ def test_cpu_path_launches_nothing():
                            for a in _inputs((1, 16, 16, 8, 8, 8)))
     fused_sepconv(x, dw, dwb, pw, pwb, rows=8)
     assert fused_sepconv.launches == before
+
+
+# The kernel's schedule (emx_torch/ops/sepconv_kernel.py::sepconv_plan),
+# with a stand-in for the card's occupancy query: blocks per SM limited
+# by registers (2 for passes of up to 64 outputs, 1 for 128) and by
+# shared memory (1 KB reserved each, 228 KB per SM), on 132 SMs.
+def _occupancy(co, smem):
+    return min(1 if co > 64 else 2, 233_472 // (smem + 1024))
+
+
+def test_outputs_per_pass_and_shared_memory():
+    assert [outputs_per_pass(co) for co in (8, 24, 32, 33, 64, 80, 128,
+                                            728)] == [32, 32, 32, 64, 64,
+                                                      128, 128, 128]
+    # folded.b: window 3 x 130 x 128, h and weights 128 x 136, output
+    # tile 128 x 136 (bf16); dw 9 x 128, dw_b 128, pw_b 128 (f32).
+    assert smem_bytes(128, 128) == (3 * 130 * 128 + 3 * 128 * 136) * 2 \
+        + (9 * 128 + 128 + 128) * 4 == 209_920
+    for kc in range(16, 257, 16):
+        for nc in (32, 64, 128):
+            assert smem_bytes(kc, nc) % 16 == 0
+
+
+@pytest.mark.parametrize("c,nc,kc", [(16, 64, 16), (20, 32, 32), (64, 64, 64),
+                                     (80, 128, 80), (128, 128, 128),
+                                     (728, 128, 128), (2048, 32, 192)])
+def test_channel_chunk(c, nc, kc):
+    """All of C (rounded up to 16) when it fits; else the fewest equal
+    chunks of a multiple of 16, which still cover C and fit."""
+    assert channel_chunk(c, nc) == kc
+    assert kc % 16 == 0 and smem_bytes(kc, nc) <= SMEM_LIMIT
+    assert -(-c // kc) * kc >= c
+
+
+# (B, H, W, C, Co) -> (kc, nc, band, grid): the six flagship blocks at B=8
+# and B=1, and off-path shapes: two pixel tiles, 728 channels.
+PLANS = [
+    ((8, 128, 128, 16, 64), (16, 64, 4, 256)),
+    ((8, 128, 128, 64, 64), (64, 64, 4, 256)),
+    ((8, 128, 128, 128, 64), (128, 64, 8, 128)),
+    ((8, 128, 128, 80, 128), (80, 128, 8, 128)),
+    ((8, 128, 128, 128, 128), (128, 128, 8, 128)),
+    ((1, 128, 128, 128, 128), (128, 128, 1, 128)),
+    ((1, 128, 128, 16, 64), (16, 64, 1, 128)),
+    ((2, 300, 200, 20, 24), (32, 32, 5, 240)),
+    ((1, 32, 32, 728, 728), (128, 128, 1, 32)),
+]
+
+
+@pytest.mark.parametrize("shape,expected", PLANS, ids=str)
+def test_sepconv_plan(shape, expected):
+    b, h, w, c, co = shape
+    plan = sepconv_plan(b, h, w, c, co, 132, _occupancy)
+    assert (plan.kc, plan.nc, plan.band, plan.grid) == expected
+    assert plan.smem == smem_bytes(plan.kc, plan.nc) <= SMEM_LIMIT
+    assert plan.grid <= 132 * _occupancy(co, plan.smem)
+
+
+@pytest.mark.parametrize("shape", [(3, 211, 30, 32, 48),
+                                   (8, 128, 128, 80, 128),
+                                   (2, 300, 200, 20, 24), (5, 7, 129, 8, 8)],
+                         ids=str)
+def test_sepconv_plan_covers_every_row_once(shape):
+    """The kernel's decoding of work items (item -> tile, band, image;
+    band -> rows y0 .. min(y0 + band, H)) over its persistent grid
+    produces every (image, row, pixel tile) exactly once, also when the
+    band does not divide H."""
+    b, h, w, c, co = shape
+    plan = sepconv_plan(b, h, w, c, co, 132, _occupancy)
+    bands = -(-h // plan.band)
+    seen = []
+    for block in range(plan.grid):
+        for item in range(block, plan.items, plan.grid):
+            tile, rest = item % plan.tiles, item // plan.tiles
+            band, image = rest % bands, rest // bands
+            y0 = band * plan.band
+            seen += [(image, y, tile)
+                     for y in range(y0, min(y0 + plan.band, h))]
+    assert sorted(seen) == [(i, y, t) for i in range(b) for y in range(h)
+                            for t in range(-(-w // 128))]
+
+
+def test_sepconv_plan_needs_a_block_per_sm():
+    with pytest.raises(RuntimeError, match="does not fit"):
+        sepconv_plan(8, 128, 128, 128, 128, 132, lambda co, smem: 0)

@@ -148,17 +148,19 @@ def test_unported_modes_raise(bundle):
         serve_artifact(bundle[0], device="cpu", port=0, dense="int8")
 
 
-def test_metrics_lose_no_update_under_load():
-    """Counters are written from handler, dispatcher and readback
-    threads; under many concurrent clients none is lost."""
+def _load(clients: int, rounds: int) -> None:
+    """`clients` threads each post `rounds` requests, all started
+    together; every request is answered, with its own result, and no
+    counter update is lost."""
     srv = InferenceServer(lambda x: x * 2.0, port=0, max_batch=4)
     srv.start()
-    clients, rounds = 12, 4
     n = clients * rounds
     outs = [None] * n
     img = np.ones((8, 8), np.float32)
+    start = threading.Barrier(clients)
 
     def client(c):
+        start.wait()
         for r in range(rounds):
             i = r * clients + c
             outs[i] = _post(srv.port, _npy(img * i))
@@ -181,6 +183,18 @@ def test_metrics_lose_no_update_under_load():
     finally:
         sys.setswitchinterval(interval)
         srv.stop()
+
+
+def test_metrics_lose_no_update_under_load():
+    """Counters are written from handler, dispatcher and readback
+    threads; under many concurrent clients none is lost."""
+    _load(clients=12, rounds=4)
+
+
+def test_burst_of_48_clients_is_answered():
+    """48 clients connecting at once: the listen backlog queues them
+    (the stdlib's backlog of 5 reset some connections)."""
+    _load(clients=48, rounds=1)
 
 
 def test_origins_and_tiling_average():
