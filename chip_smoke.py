@@ -14,12 +14,14 @@ non-zero and prints no result):
              shared-memory lines.
   3. kernel  K1 (fused_sepconv) against its plain PyTorch version on the
              card, at the six flagship shapes at B=8 (one batch-8
-             forward's fused blocks) and at B=1 (the server's latency
-             regime), 128x128, bf16, and two ragged ones; the kernel's
-             schedule (channels per pass, band, grid, shared memory);
-             CUDA-event times of the kernel, the plain version and the
-             cuDNN depthwise + pointwise pair, the card's least time for
-             the same work and the share of it the kernel reaches.
+             forward's fused blocks), B=1 (the server's latency regime),
+             B=32 (one ladder's forward in the decision and auto phases)
+             and B=96 (the serving-rate batch), 128x128, bf16, and two
+             ragged ones; the kernel's schedule (channels per pass, band,
+             grid, shared memory); at B=8 and B=1 CUDA-event times of
+             the kernel, the plain version and the cuDNN depthwise +
+             pointwise pair, the card's least time for the same work and
+             the share of it the kernel reaches.
   4. degrade K2 (fused_poisson_degrade) against its plain version,
              identical on every element, at (16, 512, 512) with training
              doses and on constant images at rates 0.5 to 200, one launch
@@ -45,7 +47,30 @@ non-zero and prints no result):
              directory), serve it with fused_rows=32 and answer a 512x512
              request: shape, finite [0, 1], six K1 launches; the PSNR
              gain is reported.
-  8. the kernels line (JSON), then the last line
+  8. decision the flagship's DECISION ladder on the card: the five
+             ladders rebuilt from the committed Poisson counts
+             (docs/runs/port_ladders/ladders.npz) with the identity PSNR
+             held to emx's record in that file (+-0.01 dB); the bundle's
+             unfused int8 graph (the program DECISION scored) and its
+             fused graph on K1 (fused_rows 32), the six classical filters
+             and identity, per family. Gates: NN PSNR of both graphs and
+             the best classical filter's name and PSNR within +-0.05 dB
+             of DECISION.json's row for the bundle, the capped margin
+             sum within +-0.1 of its 2.544; K1 launches while the fused
+             graph scores; img/s at batch 96 of both graphs.
+  9. variants val-ladder PSNR of the 'mxu2', dense int8 and dense bf16
+             graphs within +-0.05 dB of serve_perf.json's, and their
+             img/s at batch 96.
+ 10. auto    serve_artifact(bundle, auto=True, fused_rows=32): one request
+             per family and one tiled request over HTTP, finite outputs
+             of the right shape, /metrics "chosen" counts summing to the
+             native requests, K1 launches; on the val ladder auto_denoise's
+             output equals, image by image, its chosen candidate's.
+ 11. export  the bundle's float parameters saved as a directory artifact
+             (artifact.json + params.msgpack) and served from it, against
+             the float graph; a torch.export round trip of the float
+             flagship at batch 1 against eager; the export's seconds.
+ 12. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
@@ -68,8 +93,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from emx_torch.bench.flagship_decision import (bundle_graph,
+                                               capped_margin_sum,
+                                               family_rows, file_sha256,
+                                               throughput)
 from emx_torch.bench.kernel_times import (FLAGSHIP_BLOCKS, device_ms,
                                           host_paced_ms, sepconv_inputs)
+from emx_torch.bench.ladders import (FAMILIES, LADDERS, ladder_record,
+                                     load_ladder, mean_psnr)
+from emx_torch.bench.serve_latency import get_json
 from emx_torch.bench.train_profile import FLAGSHIP_TRAIN
 from emx_torch.data import (DeviceDataset, PipelineConfig, denoiser_example,
                             synthetic_micrographs)
@@ -79,13 +111,16 @@ from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
                                           poisson_counts_reference,
                                           poisson_degrade_reference)
 from emx_torch.ops.sepconv_kernel import fused_sepconv, sepconv_reference
-from emx_torch.serve.artifact import (load_denoiser_artifact,
+from emx_torch.serve.artifact import (load_denoiser_artifact, read_artifact,
                                       save_denoiser_artifact)
+from emx_torch.serve.export import (export_compiled, load_compiled,
+                                    save_artifact)
 from emx_torch.serve.convert import load_flax_params, to_flax_params
 from emx_torch.serve.fused import fused_quantized_apply, row_band
 from emx_torch.serve.optimize import fold_denoiser
 from emx_torch.serve.quantize import calibrate, quantized_apply
-from emx_torch.serve.server import serve_artifact
+from emx_torch.serve.select import auto_denoise, serving_candidates
+from emx_torch.serve.server import AUTO_SEED, serve_artifact
 from emx_torch.serve.tiling import _origins
 from emx_torch.train import Checkpointer, TrainConfig, Trainer
 from emx_torch.utils.device import card_name_and_power
@@ -124,6 +159,14 @@ FLAGSHIP_SHAPES = tuple((name, 8, *rest) for name, *rest in FLAGSHIP_BLOCKS)
 # The same blocks at batch 1, the server's latency regime.
 FLAGSHIP_SHAPES_B1 = tuple((f"{name}@b1", 1, *rest)
                            for name, _, *rest in FLAGSHIP_SHAPES)
+# The batches the decision and auto phases give K1: one ladder (32
+# images) per forward, and the serving-rate batch. Checked, not timed:
+# the kernel takes other row bands there.
+LADDER_BATCH = 32
+RATE_BATCH = 96
+FLAGSHIP_SHAPES_SERVING = tuple((f"{name}@b{b}", b, *rest)
+                                for b in (LADDER_BATCH, RATE_BATCH)
+                                for name, _, *rest in FLAGSHIP_SHAPES)
 RAGGED_SHAPES = (("ragged728", 1, 32, 32, 728, 728),
                  ("ragged20", 1, 130, 66, 20, 24))
 
@@ -205,10 +248,11 @@ def _sepconv_schedule(device: torch.device, b, h, w, c, co) -> str:
 
 
 def phase_kernel(device: torch.device,
-                 shapes=FLAGSHIP_SHAPES + FLAGSHIP_SHAPES_B1 + RAGGED_SHAPES
+                 shapes=(FLAGSHIP_SHAPES + FLAGSHIP_SHAPES_B1
+                         + FLAGSHIP_SHAPES_SERVING + RAGGED_SHAPES)
                  ) -> list[dict]:
     """K1 against its plain version on `device`, timed at the flagship
-    shapes (B=8 and B=1) on the card. Tolerance: one bf16 rounding step
+    shapes at B=8 and B=1 on the card. Tolerance: one bf16 rounding step
     of the output, |k - r| <= 2^-7 |r| + 1e-3, since the kernel sums the
     pointwise product in another order than the plain version's matmul
     (its bf16 depthwise intermediate is bit-identical)."""
@@ -742,13 +786,317 @@ def phase_deploy(device: torch.device, trained: dict,
             "psnr_gain_db": gain, "n_amax": len(amax)}
 
 
+
+# The recorded quality of the flagship bundle: its DECISION.json row (the
+# TPU's scores of emx's ladders) and emx's serve_perf.json variant rows.
+DECISION_JSON = "docs/runs/flagship/DECISION.json"
+SERVE_PERF_JSON = "docs/runs/flagship/serve_perf.json"
+# K1 launches per forward of the flagship's fused graph on the card; on
+# the CPU the wrapper runs its plain version and launches nothing.
+K1_PER_FORWARD = 6
+
+
+def k1_per_forward(device: torch.device) -> int:
+    return K1_PER_FORWARD if device.type == "cuda" else 0
+
+
+# One bf16 step of a [0, 1] output below 1.0: agreement of two runs of
+# the same float graph (a directory artifact, a torch.export program).
+BF16_STEP = 2.0 ** -8
+
+
+def decision_reference(bundle: str, path: str = DECISION_JSON) -> dict:
+    """DECISION.json's candidate row for `bundle` (by content hash) and
+    the winner's capped margin sum."""
+    with open(path) as f:
+        dec = json.load(f)
+    sha = file_sha256(bundle)
+    rows = [r for r in dec["candidates"] if r.get("sha256") == sha]
+    if not rows:
+        raise AssertionError(f"DECISION.json has no row for {bundle}")
+    return {"rows": {f: rows[0][f] for f in FAMILIES},
+            "capped_margin_sum": dec["winner_capped_margin_sum"]}
+
+
+@dataclasses.dataclass(frozen=True)
+class DecisionSmokeConfig:
+    bundle: str = "docs/runs/flagship/artifact_int8.npz"
+    ladders: str = LADDERS
+    fused_rows: int = 32
+    rate_batch: int = RATE_BATCH
+    rate_chain: int = 4
+    # Tolerances (dB): rebuilt targets against emx's identity PSNR in the
+    # ladder file; NN and best classical against DECISION.json.
+    identity_tol_db: float = 0.01
+    psnr_tol_db: float = 0.05
+    margin_sum_tol: float = 0.1
+    # The recorded quality the phases are held to.
+    reference: str = DECISION_JSON
+    serve_perf: str = SERVE_PERF_JSON
+
+
+def _gate(failures: list, ok: bool, msg: str) -> None:
+    if not ok:
+        failures.append(msg)
+
+
+def phase_decision(device: torch.device, cfg: DecisionSmokeConfig) -> dict:
+    """The flagship's DECISION ladder on `device`: both graphs, the
+    filters and identity on the five ladders, gated as the docstring of
+    this file says."""
+    t0 = time.perf_counter()
+    ladders, failures = {}, []
+    for fam in FAMILIES:
+        noisy, clean = load_ladder(fam, device, cfg.ladders)
+        ladders[fam] = (noisy, clean)
+        got = mean_psnr(noisy, clean)
+        want = round(float(np.mean(ladder_record(
+            fam, cfg.ladders)["identity_psnr"])), 3)
+        log("decision", f"{fam}: ladder {tuple(noisy.shape)} rebuilt; "
+            f"identity {got:.3f} dB, emx's {want:.3f} "
+            f"(tol {cfg.identity_tol_db})")
+        _gate(failures, abs(got - want) <= cfg.identity_tol_db + 1e-9,
+              f"{fam} identity {got} vs {want}")
+    ladder_s = time.perf_counter() - t0
+    unfused, mode = bundle_graph(cfg.bundle, device)
+    fused, _ = bundle_graph(cfg.bundle, device, cfg.fused_rows)
+    rows = {"unfused": family_rows(unfused, ladders)}
+    fused_sepconv.launches = 0
+    rows["fused"] = family_rows(fused, ladders)
+    launches = fused_sepconv.launches
+    expected = k1_per_forward(device) * len(ladders)
+    ref = decision_reference(cfg.bundle, cfg.reference)
+    for fam in FAMILIES:
+        u, f = rows["unfused"][fam], rows["fused"][fam]
+        line = (f"{fam}: nn unfused {u['nn_psnr']:.3f} fused "
+                f"{f['nn_psnr']:.3f} dB; best classical "
+                f"{u['best_classical'][0]} {u['best_classical'][1]:.3f}; "
+                f"margin {u['margin']:+.3f}; identity "
+                f"{u['identity_psnr']:.3f}")
+        r = ref["rows"][fam]
+        line += (f" | DECISION nn {r['nn_psnr']:.3f}, "
+                 f"{r['best_classical'][0]} {r['best_classical'][1]:.3f},"
+                 f" identity {r['identity_psnr']:.3f}")
+        for name, row in (("unfused", u), ("fused", f)):
+            _gate(failures, abs(row["nn_psnr"] - r["nn_psnr"])
+                  <= cfg.psnr_tol_db + 1e-9,
+                  f"{fam} {name} nn {row['nn_psnr']} vs {r['nn_psnr']}")
+        _gate(failures, u["best_classical"][0] == r["best_classical"][0]
+              and abs(u["best_classical"][1] - r["best_classical"][1])
+              <= cfg.psnr_tol_db + 1e-9,
+              f"{fam} best classical {u['best_classical']} vs "
+              f"{r['best_classical']}")
+        log("decision", line)
+    sums = {k: capped_margin_sum(v) for k, v in rows.items()}
+    for k, v in sums.items():
+        _gate(failures, abs(v - ref["capped_margin_sum"])
+              <= cfg.margin_sum_tol + 1e-9,
+              f"{k} capped margin sum {v} vs {ref['capped_margin_sum']}")
+    _gate(failures, launches == expected,
+          f"K1 launched {launches} times scoring the fused graph, expected "
+          f"{expected}")
+    rates = {}
+    if device.type == "cuda":
+        for name, fn in (("unfused", unfused), ("fused", fused),
+                         ("unfused", unfused), ("fused", fused)):
+            rates.setdefault(name, []).append(throughput(
+                fn, device, batch=cfg.rate_batch, chain=cfg.rate_chain))
+    seconds = time.perf_counter() - t0
+    log("decision", f"capped margin sum unfused {sums['unfused']:.3f}, fused "
+        f"{sums['fused']:.3f} (DECISION {ref['capped_margin_sum']})"
+        f"; K1 launches {launches} (expected {expected}); img/s at batch "
+        f"{cfg.rate_batch}: " + (", ".join(
+            f"{k} {[round(v, 1) for v in vs]}" for k, vs in rates.items())
+            or "not measured (no card)")
+        + f"; ladders {ladder_s:.1f} s, phase {seconds:.1f} s"
+        + (f" on {card_name_and_power()}" if device.type == "cuda" else ""))
+    if failures:
+        raise AssertionError("decision: " + "; ".join(failures))
+    return {"rows": rows, "capped_margin_sum": sums, "launches": launches,
+            "img_per_s": rates, "seconds": seconds, "mode": mode}
+
+
+# serve_perf.json's tag of each variant at batch 96 -> bundle_graph's
+# keywords.
+VARIANTS = (("mxu2/out_float32/b96", {"mode": "mxu2"}),
+            ("mxu/dense_int8/b96", {"dense": "int8"}),
+            ("mxu/dense_bf16/b96", {"dense": "bf16"}))
+
+
+def phase_variants(device: torch.device, cfg: DecisionSmokeConfig) -> dict:
+    """mxu2 and the dense-folded graphs on the val ladder, held to
+    serve_perf.json, and their img/s."""
+    noisy, clean = load_ladder("val", device, cfg.ladders)
+    with open(cfg.serve_perf) as f:
+        ref = {r["variant"]: r for r in json.load(f)["rows"]}
+    out, failures = {}, []
+    for tag, kw in VARIANTS:
+        fn, _ = bundle_graph(cfg.bundle, device, **kw)
+        psnr_db = mean_psnr(fn(noisy).float(), clean)
+        rate = (throughput(fn, device, batch=cfg.rate_batch,
+                           chain=cfg.rate_chain)
+                if device.type == "cuda" else None)
+        out[tag] = {"psnr": psnr_db, "img_per_s": rate}
+        want = ref[tag]["psnr"]
+        line = (f"{tag}: val {psnr_db:.3f} dB (serve_perf.json {want:.3f}, "
+                f"tol {cfg.psnr_tol_db})")
+        _gate(failures, abs(psnr_db - want) <= cfg.psnr_tol_db + 1e-9,
+              f"{tag} val {psnr_db} vs {want}")
+        line += (f"; {rate:.1f} img/s at batch {cfg.rate_batch} on "
+                 f"{card_name_and_power()}" if rate else "")
+        log("variants", line)
+        del fn
+    if failures:
+        raise AssertionError("variants: " + "; ".join(failures))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoSmokeConfig:
+    bundle: str = "docs/runs/flagship/artifact_int8.npz"
+    ladders: str = LADDERS
+    fused_rows: int = 32
+    tile: int = 512
+    overlap: int = 80
+    big_shape: tuple[int, int] = (1024, 768)
+    n_masks: int = 2
+
+
+def phase_auto(device: torch.device, cfg: AutoSmokeConfig) -> dict:
+    """Auto-select serving over HTTP, and auto_denoise against its
+    chosen candidates on the val ladder."""
+    ladders = {f: load_ladder(f, device, cfg.ladders) for f in FAMILIES}
+    reqs = [(f, ladders[f][0][0].cpu().numpy()) for f in FAMILIES]
+    big = degrade(np.random.default_rng(3),
+                  smooth_field(np.random.default_rng(4), *cfg.big_shape),
+                  DOSE)[0]
+    srv = serve_artifact(cfg.bundle, tile=cfg.tile, overlap=cfg.overlap,
+                         auto=True, auto_n_masks=cfg.n_masks,
+                         fused_rows=cfg.fused_rows, port=0, device=device)
+    try:
+        fused_sepconv.launches = 0
+        lat, outs = [], {}
+        for fam, img in reqs:
+            t = time.perf_counter()
+            outs[fam] = post(srv.port, img)
+            lat.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        big_out = post(srv.port, big)
+        big_ms = 1e3 * (time.perf_counter() - t)
+        launches = fused_sepconv.launches
+        metrics = get_json(srv.port, "/metrics")
+        info = get_json(srv.port, "/healthz")
+    finally:
+        srv.stop()
+    for fam, img in reqs:
+        _check_output(f"auto {fam}", outs[fam], img.shape)
+    _check_output("auto tiled", big_out, cfg.big_shape)
+    chosen = metrics["chosen"]
+    stride = cfg.tile - cfg.overlap
+    n_windows = (len(_origins(cfg.big_shape[0], cfg.tile, stride))
+                 * len(_origins(cfg.big_shape[1], cfg.tile, stride)))
+    forwards = (cfg.n_masks + 1) * (metrics["launches"] - 1
+                                    + -(-n_windows // 8))
+    expected = k1_per_forward(device) * forwards
+    log("auto", f"serving {info['auto']}: {len(reqs)} native requests "
+        f"(ms {[round(v, 2) for v in lat]}), one {cfg.big_shape} tiled "
+        f"request {big_ms:.1f} ms; chosen {chosen}; K1 launches {launches}"
+        f" (expected {expected})"
+        + (f" on {card_name_and_power()}" if device.type == "cuda" else ""))
+    if sum(chosen.values()) != len(reqs):
+        raise AssertionError(f"chosen counts {chosen} do not sum to the "
+                             f"{len(reqs)} native requests")
+    if launches != expected:
+        raise AssertionError(f"K1 launched {launches} times in auto "
+                             f"serving, expected {expected}")
+    graph, _ = bundle_graph(cfg.bundle, device, cfg.fused_rows)
+    names, cands = serving_candidates(graph)
+    noisy = ladders["val"][0]
+    out, pick = auto_denoise(noisy, cands, AUTO_SEED, n_masks=cfg.n_masks)
+    with torch.inference_mode():
+        each = torch.stack([fn(noisy).float() for fn in cands])
+    same = [bool(torch.equal(out[i], each[int(c), i]))
+            for i, c in enumerate(pick)]
+    counts = {n: int((pick == i).sum()) for i, n in enumerate(names)}
+    log("auto", f"val ladder: auto_denoise chose {counts}; output equals "
+        f"the chosen candidate's on {sum(same)} of {len(same)} images")
+    if not all(same):
+        raise AssertionError("auto_denoise's output is not its chosen "
+                             "candidate's")
+    return {"launches": launches, "chosen": chosen, "latency_ms": lat,
+            "tiled_ms": big_ms, "val_chosen": counts}
+
+
+def _nested(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ExportSmokeConfig:
+    bundle: str = "docs/runs/flagship/artifact_int8.npz"
+    size: int = 512
+
+
+def phase_export(device: torch.device, cfg: ExportSmokeConfig) -> dict:
+    """A directory artifact of the bundle's float parameters served from
+    its directory, and a torch.export round trip, each against the
+    float graph."""
+    config, flat, _ = read_artifact(cfg.bundle)
+    conf = {f.name: getattr(config, f.name)
+            for f in dataclasses.fields(config)}
+    rng = np.random.default_rng(6)
+    noisy = degrade(rng, smooth_field(rng, cfg.size, cfg.size), DOSE)[0]
+    _, model = load_denoiser_artifact(cfg.bundle, device=device)
+    x = torch.from_numpy(noisy[None]).to(device)
+    with torch.inference_mode():
+        ref = model(x).float()
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "artifact")
+        t0 = time.perf_counter()
+        save_artifact(art, "denoiser", conf, {"params": _nested(flat)})
+        save_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(os.path.join(art, "params.msgpack")) / 1e6
+        srv = serve_artifact(art, port=0, device=device)
+        try:
+            served = post(srv.port, noisy)
+        finally:
+            srv.stop()
+        t0 = time.perf_counter()
+        export_compiled(os.path.join(tmp, "exported"), model, (x,))
+        export_s = time.perf_counter() - t0
+        exported = load_compiled(os.path.join(tmp, "exported"))
+        with torch.inference_mode():
+            again = exported(x).float()
+    _sync(device)
+    ref_np = ref[0].cpu().numpy()
+    err_dir = float(np.abs(served - ref_np).max())
+    err_exp = float((again - ref).abs().max())
+    log("export", f"directory artifact ({size_mb:.1f} MB params.msgpack, "
+        f"saved in {save_s:.2f} s) served: max abs {err_dir:.3e} against "
+        f"the float graph; torch.export at batch 1 in {export_s:.1f} s, "
+        f"reloaded: max abs {err_exp:.3e} against eager (tol {BF16_STEP})")
+    if not (err_dir <= BF16_STEP and err_exp <= BF16_STEP):
+        raise AssertionError(f"export: directory artifact {err_dir}, "
+                             f"torch.export {err_exp} beyond {BF16_STEP}")
+    return {"export_s": export_s, "err_dir": err_dir, "err_export": err_exp}
+
+
 def kernels_line(kernel_results: list[dict], launches: int,
-                 degrade: dict, degrade_launches: int) -> dict:
+                 degrade: dict, degrade_launches: int,
+                 phase_launches: dict | None = None) -> dict:
     """K1: times summed over the six flagship shapes at B=8 (one B=8
     forward's fused blocks), and at B=1 under `b1`; error over every
     shape checked, launches on the serving path. K2: times at the
     training batch (16, 512, 512), error over every check, launches on
-    the training path. `ms`, `plain_ms` and `library_ms` are host-paced,
+    the training path; K1's `phase_launches` counts each path that runs
+    it. `ms`, `plain_ms` and `library_ms` are host-paced,
     as the line has given them from the start; `device_ms` and
     `library_device_ms` are the card's own times (`both_times`)."""
     on_card = any("ms" in r for r in kernel_results)
@@ -759,6 +1107,7 @@ def kernels_line(kernel_results: list[dict], launches: int,
         "source": "emx_torch/csrc/sepconv.cu",
         "replaces": "emx/ops/sepconv_kernel.py:71",
         "launches": launches,
+        "phase_launches": phase_launches or {"serve": launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernel_results),
         "ms": sums.get("ms"), "plain_ms": sums.get("plain_ms"),
         "bound_ms": sums.get("bound_ms"),
@@ -792,13 +1141,21 @@ def main() -> None:
     degraded = phase_degrade(device)
     served = phase_serve(device, SmokeConfig())
     trained = phase_train(device, TrainSmokeConfig())
+    trained_launches = trained["launches"]
     deployed = phase_deploy(device, trained, DeploySmokeConfig())
     log("train", f"K2 {degraded['device_ms']:.4f} ms of the "
         f"{trained['step_ms']:.2f} ms step: "
         f"{degraded['device_ms'] / trained['step_ms']:.4%}")
-    print(json.dumps(kernels_line(kernel_results, served["launches"],
-                                  degraded, trained["launches"])),
-          flush=True)
+    del trained
+    decided = phase_decision(device, DecisionSmokeConfig())
+    phase_variants(device, DecisionSmokeConfig())
+    auto = phase_auto(device, AutoSmokeConfig())
+    phase_export(device, ExportSmokeConfig())
+    print(json.dumps(kernels_line(
+        kernel_results, served["launches"], degraded, trained_launches,
+        {"serve": served["launches"], "deploy": deployed["launches"],
+         "decision": decided["launches"], "auto": auto["launches"]})),
+        flush=True)
     log("done", f"{time.perf_counter() - t0:.1f} s on {info['smi']}; "
         f"deploy K1 launches {deployed['launches']}")
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,17 @@ batch on its device.
 Randomness comes from an explicit seed: a `torch.Generator` on the
 batch's device for the D4 choices and dose scales, and a derived 64-bit
 seed for the kernel's Philox stream. The trainer derives the seed from
-(TrainConfig.seed, step). Masks, occlusion, blur and downsampling are not
+(TrainConfig.seed, step).
+
+`gaussian_blur` (separable, zero padding) serves the classical filters
+(emx_torch.analysis.filters). Masks, occlusion and downsampling are not
 ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from emx_torch.ops.degrade_kernel import fused_poisson_degrade
 from emx_torch.utils.image import flip_rotate, sanitize, scale0to1
@@ -54,3 +58,20 @@ def denoiser_example(seed: int, imgs: torch.Tensor):
     ratio = lq.mean(dim=(-2, -1), keepdim=True) / torch.clamp(
         imgs.mean(dim=(-2, -1), keepdim=True), min=1e-12)
     return lq, imgs * ratio
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  radius: int | None = None) -> torch.Tensor:
+    """Separable Gaussian blur of the last two dims, zero padding (SAME),
+    float32. Sums of shifted copies: exact float32 on every device, where
+    a cuDNN convolution may take TF32."""
+    radius = radius or max(1, int(3 * sigma + 0.5))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=img.device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    k = k / torch.sum(k)
+    h, w = img.shape[-2:]
+    p = F.pad(img, (0, 0, radius, radius))
+    out = sum(k[i] * p[..., i:i + h, :] for i in range(2 * radius + 1))
+    p = F.pad(out, (radius, radius))
+    return sum(k[i] * p[..., i:i + w] for i in range(2 * radius + 1))

@@ -1,7 +1,8 @@
 """Post-training int8 serving graphs (port of emx/serve/quantize.py).
 
   * `calibrate(model, batches)` records, per conv, the per-input-channel
-    absolute maximum of its input over a calibration set.
+    absolute maximum (or a high `quantile`) of its input over a
+    calibration set.
   * `quantized_apply(model, amax, mode)` returns an apply function in
     which every calibrated conv runs quantized:
       mode='store': an int8 round-trip on the conv's input
@@ -11,7 +12,10 @@
         channel weight quantization, so the integer product needs only a
         per-output rescale and the bias after it. Depthwise convs get the
         'store' treatment. Transposed convs are not calibrated and stay
-        in the model dtype.
+        in the model dtype;
+      mode='mxu2': 'mxu', and true depthwise convs run int8 too: int8
+        input x int8 per-group kernel, rescaled per output channel.
+    `capture` returns the float input of named convs beside the output.
 
 Quantized weights and scales are computed once, when the apply function
 is built. The quantized graph is a copy of the model's module tree with
@@ -31,18 +35,34 @@ from torch import nn
 from emx_torch.nn.blocks import Conv, pad_same
 
 
+def _quantile(flat: torch.Tensor, q: float) -> torch.Tensor:
+    """jnp.quantile(flat, q, axis=0), linear: the two order statistics
+    around q * (n - 1), weighted as jax weighs them, in float32.
+    (torch.quantile refuses inputs of more than 2^24 elements.)"""
+    n = flat.shape[0]
+    pos = torch.tensor(q, dtype=torch.float32) * (n - 1)
+    lo, hi = int(torch.floor(pos)), int(torch.ceil(pos))
+    w_hi = (pos - lo).to(flat.device)
+    s = torch.sort(flat, dim=0).values
+    return s[lo] * (1.0 - w_hi) + s[hi] * w_hi
+
+
 def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
-              per_channel: bool = True) -> dict[str, Any]:
+              per_channel: bool = True,
+              quantile: float | None = None) -> dict[str, Any]:
     """Run `batches` through `model`, recording per-conv input ranges.
 
     Returns {conv_path: np.ndarray (C_in,)} when `per_channel`, else
-    {conv_path: float}."""
+    {conv_path: float}. `quantile` (e.g. 0.9995) takes that quantile of
+    |x| per batch instead of the maximum: rare outliers saturate, the
+    grid gets finer."""
     records: dict[str, np.ndarray] = {}
 
     def hook(mod, args):
         ax = args[0].detach().float().abs()
         flat = ax.reshape(-1, ax.shape[-1] if per_channel else 1)
-        r = flat.amax(dim=0).cpu().numpy()
+        r = (flat.amax(dim=0) if quantile is None
+             else _quantile(flat, quantile)).cpu().numpy()
         r = r if per_channel else r[0]
         records[mod.path] = (np.maximum(records[mod.path], r)
                              if mod.path in records else r)
@@ -64,6 +84,13 @@ def _scale_of(a) -> torch.Tensor:
     s = torch.from_numpy(np.asarray(np.asarray(a, dtype=np.float32) / 127.0,
                                     dtype=np.float32))
     return torch.clamp(s, min=1e-12)
+
+
+def _weight_scale(w_amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127, >0-guarded. The divisor is a tensor: CUDA divides by a
+    host scalar through its reciprocal, which rounds otherwise than the
+    CPU (and emx) do, and moves weights across int8 levels."""
+    return torch.clamp(w_amax / torch.full_like(w_amax, 127.0), min=1e-12)
 
 
 def _quantize(x: torch.Tensor, x_scale: torch.Tensor) -> torch.Tensor:
@@ -106,7 +133,7 @@ class Int8Conv(nn.Module):
         x_scale = x_scale.to(dev)
         kf = conv.weight.detach().float() * x_scale.reshape(1, -1, 1, 1)
         w_amax = kf.abs().amax(dim=(1, 2, 3))
-        w_scale = torch.clamp(w_amax / 127.0, min=1e-12)
+        w_scale = _weight_scale(w_amax)
         kq = torch.clamp(torch.round(kf / w_scale.reshape(-1, 1, 1, 1)),
                          -127, 127).to(torch.int8)
         co, cin, k, _ = kq.shape
@@ -141,6 +168,68 @@ class Int8Conv(nn.Module):
         return out.reshape(out_shape).to(x.dtype)
 
 
+class Int8DepthwiseConv(nn.Module):
+    """s8 x s8 -> s32 depthwise conv ('mxu2'). The per-input-channel
+    activation scale folds along the kernel's output axis, which is only
+    right for a true depthwise conv (one group per channel, multiplier 1).
+
+    Route: nine shifted int32 multiply-adds, exact on every device.
+    torch._int_mm takes no grouped conv, and a cuDNN float32 conv of the
+    integer values is not exact on the card (its algorithm may transform
+    the operands, as Winograd does)."""
+
+    def __init__(self, conv: Conv, x_scale: torch.Tensor):
+        super().__init__()
+        if not is_depthwise(conv):
+            raise ValueError("Int8DepthwiseConv takes true depthwise convs")
+        self.kernel, self.strides, self.rate = (conv.kernel, conv.strides,
+                                                conv.rate)
+        dev = conv.weight.device
+        x_scale = x_scale.to(dev)
+        kf = conv.weight.detach().float() * x_scale.reshape(-1, 1, 1, 1)
+        w_scale = _weight_scale(kf.abs().amax(dim=(1, 2, 3)))
+        kq = torch.clamp(torch.round(kf / w_scale.reshape(-1, 1, 1, 1)),
+                         -127, 127)
+        # (ky, kx, C) int32 taps.
+        self.register_buffer("wq", kq[:, 0].permute(1, 2, 0).to(
+            torch.int32).contiguous())
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("bias", conv.bias.detach().float())
+        self.register_buffer("x_scale", x_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s, d = self.kernel, self.strides, self.rate
+        b, h, w, _ = x.shape
+        ho, wo = -(-h // s), -(-w // s)
+        xp = pad_same(_quantize(x, self.x_scale), k, s, d).to(torch.int32)
+        acc = sum(xp[:, ky * d:ky * d + (ho - 1) * s + 1:s,
+                     kx * d:kx * d + (wo - 1) * s + 1:s] * self.wq[ky, kx]
+                  for ky in range(k) for kx in range(k))
+        return (acc.float() * self.w_scale + self.bias).to(x.dtype)
+
+
+def is_depthwise(conv: Conv) -> bool:
+    """One group per input channel and one output per group."""
+    cin = conv.weight.shape[1] * conv.groups
+    return (conv.groups > 1 and conv.groups == cin
+            and conv.weight.shape[0] == cin)
+
+
+class Capture(nn.Module):
+    """Records its module's input under `path` in `store`, then runs it."""
+
+    def __init__(self, inner: nn.Module, path: str, store: dict):
+        super().__init__()
+        self.inner, self.path, self.store = inner, path, store
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self.store[self.path] = x
+        return self.inner(x)
+
+
+MODES = ("store", "mxu", "mxu2")
+
+
 def swap_modules(model: nn.Module,
                  replace: Callable[[nn.Module], nn.Module | None]
                  ) -> nn.Module:
@@ -157,37 +246,61 @@ def swap_modules(model: nn.Module,
 
 
 def quantize_convs(model: nn.Module, amax: dict[str, Any], mode: str,
-                   skip: Iterable[str] = ()) -> nn.Module:
-    """`model` with every calibrated conv swapped for its int8 form."""
-    if mode not in ("store", "mxu"):
-        raise NotImplementedError(
-            f"quantization mode {mode!r} is not ported yet (ROADMAP.md)")
+                   skip: Iterable[str] = (),
+                   capture: dict | None = None) -> nn.Module:
+    """`model` with every calibrated conv swapped for its int8 form. The
+    convs named in `capture` (a dict, filled on every forward) are
+    wrapped to record their float input."""
+    if mode not in MODES:
+        raise ValueError(f"quantization mode {mode!r} is not one of {MODES}")
     skip = set(skip)
 
-    def replace(mod):
-        if not isinstance(mod, Conv):
-            return None
+    def quantized(mod: Conv) -> nn.Module:
         p = mod.path
         if p not in amax or p in skip or np.all(np.asarray(amax[p]) <= 0):
             return mod
         x_scale = _scale_of(amax[p])
-        if mode == "store" or mod.groups != 1:
-            return StoreConv(mod, x_scale)
-        return Int8Conv(mod, x_scale)
+        if mod.groups == 1 and mode != "store":
+            return Int8Conv(mod, x_scale)
+        if mode == "mxu2" and is_depthwise(mod):
+            return Int8DepthwiseConv(mod, x_scale)
+        return StoreConv(mod, x_scale)
+
+    def replace(mod):
+        if not isinstance(mod, Conv):
+            return None
+        if capture is not None and mod.path in capture:
+            return Capture(quantized(mod), mod.path, capture)
+        return quantized(mod)
 
     return swap_modules(model, replace)
 
 
 def quantized_apply(model: nn.Module, amax: dict[str, Any],
-                    mode: str = "store", skip: Iterable[str] = ()
-                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+                    mode: str = "store", skip: Iterable[str] = (),
+                    capture: str | tuple[str, ...] | None = None
+                    ) -> Callable[[torch.Tensor], Any]:
     """Build fn(x) running `model` with every calibrated conv quantized.
     `amax` comes from `calibrate`; missing entries and `skip` members
-    leave that conv in float."""
-    graph = quantize_convs(model, amax, mode, skip)
+    leave that conv in float.
 
-    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+    `capture`: a conv path, or a tuple of paths; fn(x) then returns
+    (output, the float input of that conv), or (output, tuple of inputs
+    in the given order), to harvest intermediate features of the
+    deployment graph."""
+    paths = ((capture,) if isinstance(capture, str)
+             else tuple(capture) if capture is not None else ())
+    store: dict[str, torch.Tensor] = dict.fromkeys(paths)
+    graph = quantize_convs(model, amax, mode, skip,
+                           capture=store if paths else None)
+
+    def apply_fn(x: torch.Tensor):
         with torch.inference_mode():
-            return graph(x)
+            out = graph(x)
+        if isinstance(capture, str):
+            return out, store[capture]
+        if paths:
+            return out, tuple(store[p] for p in paths)
+        return out
 
     return apply_fn

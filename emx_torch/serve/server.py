@@ -8,7 +8,9 @@
 Requests are queued; a dispatcher thread drains up to `max_batch` at a
 time and runs them through the apply function as one batch. A 2D image
 that is not the native tile goes through `oversize_fn` (overlapped
-tiling) instead.
+tiling) instead. An apply function may return (batch, per-image label)
+instead of a batch (auto-select serving); the labels are counted under
+metrics["chosen"], keyed by `aux_names`.
 
 Two deliberate departures from `emx`: the metrics counters are updated
 under a lock (they are written from three threads), and
@@ -31,8 +33,9 @@ import numpy as np
 import torch
 
 from emx_torch.serve.artifact import load_denoiser_artifact
-from emx_torch.serve.fused import fused_quantized_apply, load_serve_mode
-from emx_torch.serve.quantize import quantized_apply
+from emx_torch.serve.export import load_artifact
+from emx_torch.serve.fused import build_graph, load_serve_mode
+from emx_torch.serve.select import auto_denoise, serving_candidates
 from emx_torch.serve.tiling import tiled_apply
 from emx_torch.utils.device import resolve_device
 
@@ -76,6 +79,7 @@ class InferenceServer:
         oversize_fn: Callable[[np.ndarray], np.ndarray] | None = None,
         tile_size: int = 512,
         batch_window_s: float = 0.0,
+        aux_names: list[str] | None = None,
     ):
         self.apply_fn = apply_fn
         self.max_batch = max_batch
@@ -94,6 +98,9 @@ class InferenceServer:
         self.model_info = model_info or {}
         self.metrics = {"requests": 0, "launches": 0, "errors": 0,
                         "batched_images": 0, "total_latency_s": 0.0}
+        self.aux_names = aux_names
+        if aux_names:
+            self.metrics["chosen"] = {name: 0 for name in aux_names}
         self._metrics_lock = threading.Lock()
         self._q: queue.Queue[_Pending] = queue.Queue()
         self._stop = threading.Event()
@@ -194,7 +201,16 @@ class InferenceServer:
                     return
                 group, out_dev, n = item
                 try:
+                    aux = None
+                    if isinstance(out_dev, tuple):
+                        out_dev, aux = out_dev
                     out = _host(out_dev)[:n]
+                    if aux is not None and self.aux_names:
+                        chosen = np.asarray(_host(aux), np.int64)[:n]
+                        with self._metrics_lock:
+                            for c in chosen:
+                                self.metrics["chosen"][
+                                    self.aux_names[int(c)]] += 1
                     for p, o in zip(group, out):
                         p.result = o
                 except Exception as e:  # execution errors surface here
@@ -271,45 +287,66 @@ class InferenceServer:
         self._dispatcher.join(timeout=5.0)
 
 
+AUTO_SEED = 0  # auto-select's fixed mask seed: deterministic serving
+
+
 def serve_artifact(artifact_path: str, tile: int = 512, overlap: int = 80,
                    device: str | torch.device = "cuda",
                    **kw) -> InferenceServer:
-    """Serve a one-file .npz denoiser bundle on `device`.
+    """Serve a one-file .npz denoiser bundle or a directory artifact
+    (emx_torch.serve.export) on `device`.
 
-    Native-tile requests go through the micro-batcher; any other 2D
-    image through overlapped tiling. An int8-promoted bundle serves its
-    quantized graph; `fused_rows` (or the bundle's `serve_mode.json`)
-    routes qualifying SepConvBlocks through the fused kernel."""
-    if not (artifact_path.endswith(".npz") or os.path.isfile(artifact_path)):
-        raise NotImplementedError(
-            "directory artifacts are not ported yet (ROADMAP.md Queue 1)")
-    if kw.pop("auto", False):
-        raise NotImplementedError(
-            "auto-select serving is not ported yet (ROADMAP.md Queue 1)")
+    Bundles serve 2D images of any size: native-tile requests go through
+    the micro-batcher, any other through overlapped tiling. An
+    int8-promoted bundle serves its quantized graph: `dense` ("int8" or
+    "bf16") folds qualifying SepConvBlocks into dense convs, `fused_rows`
+    routes them through the fused kernel (either may come from the
+    bundle's serve_mode.json). `auto=True` denoises each request with
+    its J-invariant winner among the NN and classical filters
+    (emx_torch.serve.select), scored on `auto_n_masks` masks."""
     device = resolve_device(device)
+    if not (artifact_path.endswith(".npz") or os.path.isfile(artifact_path)):
+        art = load_artifact(artifact_path)
+        model_fn = art.apply_fn(device)
+        srv = InferenceServer(
+            lambda batch: model_fn(torch.from_numpy(batch)),
+            model_info={"model": art.model_name, "device": str(device)},
+            **kw)
+        srv.start()
+        return srv
     cfg, model, quant = load_denoiser_artifact(artifact_path, with_quant=True,
                                                device=device)
-    fused_rows = 0
+    fused_rows, dense = 0, ""
     if quant is not None:
         smode = load_serve_mode(artifact_path) or {}
         fused_rows = int(kw.pop("fused_rows", smode.get("fused_rows", 0)))
-        if kw.pop("dense", smode.get("dense", "")):
-            raise NotImplementedError(
-                "dense serving is not ported yet (ROADMAP.md Queue 1)")
-        build = fused_quantized_apply if fused_rows else quantized_apply
-        extra = {"rows": fused_rows} if fused_rows else {}
-        graph = build(model, quant["amax"], mode=quant["mode"],
-                      skip=quant.get("skip", ()), **extra)
+        dense = str(kw.pop("dense", smode.get("dense", "")))
+        graph = build_graph(model, quant, fused_rows=fused_rows, dense=dense)
     else:
         def graph(x):
             with torch.inference_mode():
                 return model(x)
 
-    def apply_fn(batch: np.ndarray) -> torch.Tensor:
-        return graph(torch.from_numpy(batch).to(device))
+    auto = bool(kw.pop("auto", False))
+    n_masks = int(kw.pop("auto_n_masks", 2))
+    names = None
+    if auto:
+        names, cands = serving_candidates(graph)
+        kw.setdefault("aux_names", names)
+
+        def serve_fn(x):
+            return auto_denoise(x, cands, AUTO_SEED, n_masks=n_masks)
+
+        def tile_fn(x):  # the tiled path keeps the output, drops labels
+            return serve_fn(x)[0]
+    else:
+        serve_fn = tile_fn = graph
+
+    def apply_fn(batch: np.ndarray):
+        return serve_fn(torch.from_numpy(batch).to(device))
 
     def oversize_fn(img: np.ndarray) -> torch.Tensor:
-        return tiled_apply(graph, torch.from_numpy(img).to(device),
+        return tiled_apply(tile_fn, torch.from_numpy(img).to(device),
                            tile=tile, overlap=overlap, batch=8)
 
     kw.setdefault("pad_batches", True)
@@ -320,8 +357,8 @@ def serve_artifact(artifact_path: str, tile: int = 512, overlap: int = 80,
     info = {"model": "denoiser", "s2d": cfg.space_to_depth,
             "folded_head": cfg.folded_head,
             "quant": None if quant is None else quant["mode"],
-            "fused_rows": fused_rows, "tile": tile, "overlap": overlap,
-            "device": str(device)}
+            "fused_rows": fused_rows, "dense": dense, "auto": names or False,
+            "tile": tile, "overlap": overlap, "device": str(device)}
     srv = InferenceServer(apply_fn, model_info=info, **kw)
     srv.start()
     return srv

@@ -5,7 +5,8 @@ Windows of `tile` pixels with `overlap` pixels of overlap cover the
 image, the last one clamped flush to the edge. They run through the
 model in batches of `batch` windows, and overlapping outputs are
 averaged on the device. Images smaller than a tile are grown by
-repeated reflection first and cropped back after.
+repeated reflection first and cropped back after. `TiledApplier` binds
+a model to these settings, with whole-image preprocessing.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from typing import Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from emx_torch.utils.image import sanitize, scale0to1
 
 
 def _origins(extent: int, tile: int, stride: int) -> np.ndarray:
@@ -70,3 +74,40 @@ def tiled_apply(apply_fn: Callable[[torch.Tensor], torch.Tensor],
         padded = F.pad(padded, (0, pw, 0, ph), mode="reflect")
     out = _tiled_apply(apply_fn, padded[0, 0], tile, overlap, batch)
     return out[:h, :w]
+
+
+class TiledApplier:
+    """A model bound to tiling settings (the `Denoiser` class shape of the
+    reference, machine_learning/denoiser.py:584-682). Images go to the
+    device of the model's parameters."""
+
+    def __init__(self, model: nn.Module, tile: int = 512, overlap: int = 80,
+                 batch: int = 4, preprocess: bool = True):
+        self.model = model
+        self.tile, self.overlap, self.batch = tile, overlap, batch
+        self.preprocess = preprocess
+        self.device = next(model.parameters()).device
+
+    def _apply_fn(self, crops: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.model(crops)
+
+    def _pre(self, img: torch.Tensor) -> torch.Tensor:
+        """Whole-image sanitize + rescale to [0, 1] (reference
+        Denoiser.preprocess:632-642, once per image)."""
+        return scale0to1(sanitize(img))
+
+    def _input(self, img, preprocess: bool | None) -> torch.Tensor:
+        img = torch.as_tensor(img, dtype=torch.float32).to(self.device)
+        if self.preprocess if preprocess is None else preprocess:
+            img = self._pre(img)
+        return img
+
+    def apply_crop(self, crop, preprocess: bool | None = None
+                   ) -> torch.Tensor:
+        """One window through the model (reference denoise_crop:645-651)."""
+        return self._apply_fn(self._input(crop, preprocess)[None])[0]
+
+    def __call__(self, img, preprocess: bool | None = None) -> torch.Tensor:
+        return tiled_apply(self._apply_fn, self._input(img, preprocess),
+                           self.tile, self.overlap, self.batch)

@@ -18,10 +18,17 @@ import pytest
 import torch
 
 import chip_smoke
+import importlib.util
+import pathlib
+from emx.bench import flagship_decision as emx_decision
+from emx.bench.quant_check import _psnr as emx_psnr
 from emx.nn import Denoiser as FlaxDenoiser
 from emx.nn import DenoiserConfig as FlaxConfig
+from emx.serve import artifact as emx_artifact
 from emx.serve.artifact import save_denoiser_artifact
+from emx.serve.fused import dense_quantized_apply as emx_dense_apply
 from emx.serve.quantize import calibrate as flax_calibrate
+from emx.serve.quantize import quantized_apply as emx_quantized_apply
 from emx_torch.nn import DenoiserConfig
 
 
@@ -86,7 +93,8 @@ def test_kernel_phase_and_report_lines(capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms"}
-    assert set(k1) == keys | {"b1"} and set(k2) == keys
+    assert set(k1) == keys | {"b1", "phase_launches"} and set(k2) == keys
+    assert k1["phase_launches"] == {"serve": 7}
     assert set(k1["b1"]) == set(chip_smoke.TIMED_KEYS)
     for k in (k1, k2):
         assert k["route"] == "cuda"
@@ -192,3 +200,143 @@ def test_flagship_training_config():
     assert m.features == (64, 128, 256, 728, 728)
     assert (m.num_middle_blocks, m.aspp_filters, m.aspp_out) == (11, 728, 256)
     assert (cfg.batch, cfg.size, cfg.learning_rate) == (16, 512, 1e-3)
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def tiny_ladders(tmp_path_factory):
+    """The five ladders at 2 images of 64x64, written by the script that
+    writes the committed file (emx draws the counts)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_port_ladders", ROOT / "scripts" / "make_port_ladders.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    path = str(tmp_path_factory.mktemp("ladders") / "ladders.npz")
+    script.main(path, n=2, size=64)
+    return path
+
+
+@pytest.fixture(scope="module")
+def tiny_decision(tiny_config, tiny_ladders, tmp_path_factory):
+    """The decision and variants phases' config on the tiny bundle and
+    ladders, held to references that emx computes here as it computed
+    DECISION.json and serve_perf.json: its unfused int8 graph's rows on
+    the five ladders, and the variants' val PSNR."""
+    cfg, variables, quant = emx_artifact.load_denoiser_artifact(
+        tiny_config.bundle, with_quant=True)
+    model, skip = FlaxDenoiser(cfg), quant.get("skip", ())
+    ladders = {}
+    for fam in chip_smoke.FAMILIES:
+        noisy, clean = chip_smoke.load_ladder(fam, CPU, tiny_ladders)
+        ladders[fam] = (jnp.asarray(noisy.numpy()), jnp.asarray(clean.numpy()))
+    rows = emx_decision.family_rows(jax.jit(emx_quantized_apply(
+        model, variables, quant["amax"], quant["mode"], skip=skip)), ladders)
+    out = tmp_path_factory.mktemp("references")
+    (out / "DECISION.json").write_text(json.dumps({
+        "candidates": [{"sha256": chip_smoke.file_sha256(tiny_config.bundle),
+                        **rows}],
+        "winner_capped_margin_sum": emx_decision.capped_margin_sum(rows)}))
+    graphs = {"mxu2/out_float32/b96": emx_quantized_apply(
+        model, variables, quant["amax"], "mxu2", skip=skip)}
+    for kind in ("int8", "bf16"):
+        graphs[f"mxu/dense_{kind}/b96"] = emx_dense_apply(
+            model, variables, quant["amax"], quant["mode"], skip=skip,
+            quantized=kind == "int8")
+    noisy, clean = ladders["val"]
+    (out / "serve_perf.json").write_text(json.dumps({"rows": [
+        {"variant": tag, "psnr": emx_psnr(jax.jit(fn)(noisy), clean)}
+        for tag, fn in graphs.items()]}))
+    return chip_smoke.DecisionSmokeConfig(
+        bundle=tiny_config.bundle, ladders=tiny_ladders, fused_rows=8,
+        reference=str(out / "DECISION.json"),
+        serve_perf=str(out / "serve_perf.json"))
+
+
+def test_decision_phase(tiny_decision, tmp_path):
+    """Both graphs, the filters and identity on the five tiny ladders,
+    held at the phase's tolerances to emx's rows; then, with one NN PSNR
+    of the reference moved 0.06 dB from the port's, the 0.05 dB gate
+    fails."""
+    assert tiny_decision.psnr_tol_db == 0.05
+    res = chip_smoke.phase_decision(CPU, tiny_decision)
+    assert set(res["rows"]["unfused"]) == set(chip_smoke.FAMILIES)
+    assert res["launches"] == 0 and res["img_per_s"] == {}
+    with open(tiny_decision.reference) as f:
+        dec = json.load(f)
+    row = dec["candidates"][0]
+    row["ood_porous"]["nn_psnr"] = round(
+        res["rows"]["unfused"]["ood_porous"]["nn_psnr"] + 0.06, 3)
+    path = tmp_path / "DECISION.json"
+    path.write_text(json.dumps(dec))
+    cfg = dataclasses.replace(tiny_decision, reference=str(path))
+    with pytest.raises(AssertionError, match="ood_porous unfused nn"):
+        chip_smoke.phase_decision(CPU, cfg)
+
+
+def test_variants_phase(tiny_decision):
+    res = chip_smoke.phase_variants(CPU, tiny_decision)
+    assert [t for t, _ in chip_smoke.VARIANTS] == list(res)
+    assert all(np.isfinite(r["psnr"]) and r["img_per_s"] is None
+               for r in res.values())
+
+
+def test_variants_reference_tags():
+    """The tags chip_smoke holds are rows of serve_perf.json."""
+    with open(ROOT / chip_smoke.SERVE_PERF_JSON) as f:
+        tags = {r["variant"] for r in json.load(f)["rows"]}
+    assert {t for t, _ in chip_smoke.VARIANTS} <= tags
+
+
+def test_decision_reference_of_the_flagship():
+    ref = chip_smoke.decision_reference(chip_smoke.DecisionSmokeConfig()
+                                        .bundle)
+    assert ref["capped_margin_sum"] == 2.544
+    assert ref["rows"]["val"]["nn_psnr"] == 38.326
+    assert ref["rows"]["ood_porous"]["best_classical"][0] == "median"
+
+
+def test_auto_phase(tiny_config, tiny_ladders):
+    res = chip_smoke.phase_auto(CPU, chip_smoke.AutoSmokeConfig(
+        bundle=tiny_config.bundle, ladders=tiny_ladders, fused_rows=8,
+        tile=64, overlap=16, big_shape=(100, 72)))
+    assert sum(res["chosen"].values()) == len(chip_smoke.FAMILIES)
+    assert sum(res["val_chosen"].values()) == 2 and res["launches"] == 0
+
+
+def test_export_phase(tiny_config):
+    res = chip_smoke.phase_export(CPU, chip_smoke.ExportSmokeConfig(
+        bundle=tiny_config.bundle, size=64))
+    assert res["err_dir"] <= chip_smoke.BF16_STEP
+    assert res["err_export"] <= chip_smoke.BF16_STEP
+
+
+def test_kernel_phase_checks_every_serving_batch():
+    """phase_kernel holds K1 to its plain version at every batch the
+    smoke's paths give it: B=8 and 1 (serve), one ladder (decision,
+    auto) and the serving-rate batch."""
+    import inspect
+    shapes = inspect.signature(chip_smoke.phase_kernel).parameters[
+        "shapes"].default
+    with np.load(ROOT / chip_smoke.LADDERS) as z:
+        ladder_batch = z["val_counts"].shape[0]
+    assert chip_smoke.LADDER_BATCH == ladder_batch
+    assert chip_smoke.DecisionSmokeConfig().rate_batch == chip_smoke.RATE_BATCH
+    for batch in (8, 1, ladder_batch, chip_smoke.RATE_BATCH):
+        got = {tuple(s[2:]) for s in shapes if s[1] == batch}
+        assert got >= {tuple(b[1:]) for b in chip_smoke.FLAGSHIP_BLOCKS}
+
+
+@pytest.mark.parametrize("kw, mode", [({}, "mxu"), ({"mode": "mxu2"}, "mxu2"),
+                                      ({"dense": "bf16"}, "mxu"),
+                                      ({"out_dtype": "bfloat16"}, "mxu")])
+def test_bundle_graph_variants(tiny_config, kw, mode):
+    fn, got = chip_smoke.bundle_graph(tiny_config.bundle, CPU, **kw)
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 64, 64), dtype=np.float32))
+    out = fn(x)
+    assert got == mode and out.shape == x.shape
+    assert bool(torch.isfinite(out.float()).all())
+    assert out.dtype == (torch.bfloat16 if kw.get("out_dtype")
+                         else torch.float32)

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels and of a train step on the
-card (marker `gpu`).
+"""Card-only tests of the port's CUDA kernels, of a train step on the
+card, and of the serving modules' device paths (marker `gpu`).
 
 They skip without a card. On the machine with the card, which has no
 JAX, run them without the JAX-importing conftest:
@@ -14,12 +14,17 @@ import numpy as np
 import pytest
 import torch
 
+from emx_torch.analysis.filters import DEFAULT_FILTERS
+from emx_torch.bench.ladders import load_ladder
 from emx_torch.data import denoiser_example, synthetic_micrographs
 from emx_torch.nn import Denoiser, DenoiserConfig
+from emx_torch.nn.blocks import Conv
 from emx_torch.ops import degrade_kernel, sepconv_kernel
 from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
                                           poisson_degrade_reference)
 from emx_torch.ops.sepconv_kernel import fused_sepconv, sepconv_reference
+from emx_torch.serve.quantize import Int8DepthwiseConv
+from emx_torch.serve.select import auto_denoise, serving_candidates
 from emx_torch.train import TrainConfig, Trainer
 from emx_torch.utils.device import sm_count
 
@@ -213,3 +218,51 @@ def test_train_step_on_the_card(cuda):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert any(not torch.equal(a, b) for a, b in
                zip(before_params, model.parameters()))
+
+
+@pytest.mark.gpu
+def test_int8_depthwise_on_the_card_is_exact(cuda):
+    """'mxu2' depthwise: integer sums are exact in float32 (TF32 on or
+    off), so the card gives the CPU's output bit for bit."""
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator().manual_seed(0)
+    conv = Conv(64, 64, 3, groups=64)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen))
+        conv.bias.copy_(torch.randn(64, generator=gen))
+    x = 3 * torch.rand((2, 40, 36, 64), generator=gen)
+    scale = x.abs().amax(dim=(0, 1, 2)) / 127.0
+    ref = Int8DepthwiseConv(conv, scale)(x)
+    got = Int8DepthwiseConv(conv.to(cuda), scale.to(cuda))(x.to(cuda))
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DEFAULT_FILTERS))
+def test_filter_on_the_card_matches_cpu(cuda, name):
+    x = torch.rand((3, 96, 80), generator=torch.Generator().manual_seed(1))
+    ref = DEFAULT_FILTERS[name](x)
+    got = DEFAULT_FILTERS[name](x.to(cuda)).cpu()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_ctf_ladder_on_the_card_matches_cpu(cuda):
+    """The ctf family renders on torch.fft: the card's ladder within 1e-5
+    of the CPU's; the noisy images are the same counts, exactly."""
+    n_cpu, t_cpu = load_ladder("ood_ctf", "cpu")
+    n_gpu, t_gpu = load_ladder("ood_ctf", cuda)
+    assert torch.equal(n_gpu.cpu(), n_cpu)
+    torch.testing.assert_close(t_gpu.cpu(), t_cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_auto_denoise_on_the_card(cuda):
+    """Each image's output is its chosen candidate's, on the card."""
+    noisy, _ = load_ladder("val", cuda)
+    names, cands = serving_candidates(lambda b: b * 0.5 + 0.25)
+    out, chosen = auto_denoise(noisy[:6], cands, seed=0, n_masks=2)
+    each = torch.stack([fn(noisy[:6]) for fn in cands])
+    for i, c in enumerate(chosen.tolist()):
+        assert torch.equal(out[i], each[c, i])
+    assert chosen.device.type == "cuda" and len(names) == len(cands)

@@ -1,7 +1,7 @@
 """The port stands alone: emx_torch, chip_smoke.py and the card-only
-tests import neither JAX, flax, ml_dtypes nor the emx package, at module
-level or in a function body (the machine with the card has none of
-them)."""
+tests import neither JAX, flax, ml_dtypes, msgpack nor the emx package,
+at module level or in a function body (the machine with the card has
+none of them)."""
 
 import ast
 import pathlib
@@ -11,7 +11,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "ml_dtypes", "emx")
+FORBIDDEN = ("jax", "flax", "ml_dtypes", "msgpack", "emx")
 PORT_FILES = sorted((ROOT / "emx_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
 
@@ -43,7 +43,7 @@ def test_import_with_jax_blocked():
     jax, flax and ml_dtypes cannot be imported, and none reaches emx."""
     code = """
 import importlib, pkgutil, sys
-for m in ("jax", "flax", "ml_dtypes"):
+for m in ("jax", "flax", "ml_dtypes", "msgpack"):
     sys.modules[m] = None
 import emx_torch
 names = [m.name for m in pkgutil.walk_packages(emx_torch.__path__,
@@ -52,7 +52,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = [m for m in sys.modules if m == "emx" or m.startswith("emx.")
-       or (m.split(".")[0] in ("jax", "flax", "ml_dtypes")
+       or (m.split(".")[0] in ("jax", "flax", "ml_dtypes", "msgpack")
            and sys.modules[m] is not None)]
 assert not bad, bad
 print(len(names))

@@ -12,17 +12,22 @@ from flax.traverse_util import flatten_dict
 
 from emx.nn import Denoiser as FlaxDenoiser
 from emx.nn import DenoiserConfig as FlaxConfig
+from emx.serve.fused import dense_quantized_apply as flax_dense
 from emx.serve.fused import fused_quantized_apply as flax_fused
 from emx.serve.quantize import calibrate as flax_calibrate
 from emx.serve.quantize import quantized_apply as flax_quantized
 from emx_torch.nn import Denoiser, DenoiserConfig
 from emx_torch.ops.sepconv_kernel import fused_sepconv
 from emx_torch.serve.convert import load_flax_params
-from emx_torch.serve.fused import FusedSepConv, fused_quantized_apply
-from emx_torch.serve.quantize import (Int8Conv, StoreConv, calibrate,
-                                      quantize_convs, quantized_apply)
+from emx_torch.serve.fused import (DenseSepConv, FusedSepConv,
+                                   dense_quantized_apply,
+                                   fused_quantized_apply)
+from emx_torch.serve.quantize import (Int8Conv, Int8DepthwiseConv, StoreConv,
+                                      calibrate, quantize_convs,
+                                      quantized_apply)
 
 KW = dict(norm="none", space_to_depth=2, folded_head=16)
+BF16_STEP = 2.0 ** -8   # one bf16 step of a [0, 1] output below 1.0
 
 
 @pytest.fixture(scope="module")
@@ -81,8 +86,103 @@ def test_quantized_graph_swaps_the_right_convs(setup):
     assert isinstance(mods["SepConvBlock_0.Conv_1"], Int8Conv)
     assert type(mods["ConvBlock_0.Conv_0"]).__name__ == "Conv"
     assert type(port.SepConvBlock_0.Conv_1).__name__ == "Conv"
-    with pytest.raises(NotImplementedError):
-        quantize_convs(port, amax, "mxu2")
+    mods2 = dict(quantize_convs(port, amax, "mxu2").named_modules())
+    assert isinstance(mods2["SepConvBlock_0.Conv_0"], Int8DepthwiseConv)
+    assert isinstance(mods2["SepConvBlock_0.Conv_1"], Int8Conv)
+    with pytest.raises(ValueError, match="int4"):
+        quantize_convs(port, amax, "int4")
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_mxu2_matches_flax(setup, per_channel):
+    """int8 depthwise convs: the same integer sums (exact in float32 on
+    the port's side), so within one bf16 step of emx's output."""
+    x, model, variables, port = setup
+    amax = flax_calibrate(model, variables, [jnp.asarray(x)],
+                          per_channel=per_channel)
+    ref = np.asarray(flax_quantized(model, variables, amax, "mxu2")(
+        jnp.asarray(x)))
+    got = quantized_apply(port, amax, "mxu2")(torch.from_numpy(x)).numpy()
+    assert np.abs(got - ref).max() <= BF16_STEP
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_quantile_calibration_matches_flax(setup, per_channel):
+    x, model, variables, port = setup
+    ref = flax_calibrate(model, variables, [jnp.asarray(x)],
+                         per_channel=per_channel, quantile=0.99)
+    got = calibrate(port, [torch.from_numpy(x)], per_channel=per_channel,
+                    quantile=0.99)
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("capture", [
+    "SepConvBlock_0/Conv_1", ("SepConvBlock_0/Conv_1", "ConvBlock_0/Conv_0")],
+    ids=["one", "tuple"])
+def test_capture_matches_flax(setup, capture):
+    """The float input of the named convs beside the output, in order;
+    a captured conv is still quantized."""
+    x, model, variables, port = setup
+    amax = flax_calibrate(model, variables, [jnp.asarray(x)])
+    ref_out, ref_cap = flax_quantized(model, variables, amax, "mxu",
+                                      capture=capture)(jnp.asarray(x))
+    out, cap = quantized_apply(port, amax, "mxu", capture=capture)(
+        torch.from_numpy(x))
+    if isinstance(capture, str):
+        ref_cap, cap = (ref_cap,), (cap,)
+    assert len(cap) == len(ref_cap)
+    for a, b in zip(cap, ref_cap):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+    _close_to_grid(out.numpy(), np.asarray(ref_out))
+    plain = quantized_apply(port, amax, "mxu")(torch.from_numpy(x))
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["int8", "float"])
+def test_dense_matches_flax(setup, quantized):
+    """Each qualifying block's pair folded into one dense 3x3 conv:
+    within one bf16 step of emx's output."""
+    x, model, variables, port = setup
+    amax = flax_calibrate(model, variables, [jnp.asarray(x)])
+    ref = np.asarray(flax_dense(model, variables, amax, "mxu", min_pixels=0,
+                                quantized=quantized)(jnp.asarray(x)))
+    got = dense_quantized_apply(port, amax, "mxu", min_pixels=0,
+                                quantized=quantized)(torch.from_numpy(x))
+    assert np.abs(got.numpy() - ref).max() <= BF16_STEP
+    graph_types = {type(m) for m in quantize_convs(port, amax, "mxu")
+                   .modules()}
+    assert DenseSepConv not in graph_types   # the model is left alone
+
+
+def test_dense_skip_checks_both_convs(setup):
+    """The port honours `skip` for either conv of a folded pair; emx
+    checks only Conv_0 (emx/serve/fused.py:159). A skip naming the
+    block's Conv_1 runs its folded conv in float in the port, as emx
+    does for a skip naming Conv_0, while emx ignores it."""
+    x, model, variables, port = setup
+    amax = flax_calibrate(model, variables, [jnp.asarray(x)])
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+
+    def emx_out(skip):
+        return np.asarray(flax_dense(model, variables, amax, "mxu",
+                                     skip=skip, min_pixels=0)(xj))
+
+    port_skip1 = dense_quantized_apply(
+        port, amax, "mxu", skip=("SepConvBlock_0/Conv_1",),
+        min_pixels=0)(xt).numpy()
+    port_plain = dense_quantized_apply(port, amax, "mxu",
+                                       min_pixels=0)(xt).numpy()
+    # emx ignores a Conv_1 skip: its output is the unskipped graph's.
+    np.testing.assert_array_equal(emx_out(("SepConvBlock_0/Conv_1",)),
+                                  emx_out(()))
+    # The port's Conv_1 skip gives emx's Conv_0 skip, and changes the
+    # output.
+    assert np.abs(port_skip1 - emx_out(("SepConvBlock_0/Conv_0",))
+                  ).max() <= BF16_STEP
+    assert np.abs(port_skip1 - port_plain).max() > 0
 
 
 def test_fused_matches_flax(setup):
@@ -120,8 +220,9 @@ def test_fused_claims_only_qualifying_blocks(setup, monkeypatch):
     assert n_fusable == 0
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["mxu", "fused"])
-def test_bf16_graphs_close_to_flax(fused):
+@pytest.mark.parametrize("graph", ["mxu", "fused", "mxu2", "dense_int8"],
+                         ids=["mxu", "fused", "mxu2", "dense_int8"])
+def test_bf16_graphs_close_to_flax(graph):
     """The flagship's setting: bf16 activations, int8 mxu, s2d 4 with a
     folded head. bf16 rounds at other places in the two frameworks
     (conv accumulation, bias adds, resize), and an activation moved by a
@@ -138,14 +239,18 @@ def test_bf16_graphs_close_to_flax(fused):
         DenoiserConfig.tiny(), dtype=torch.bfloat16, **kw), device="cpu"),
         flat).eval()
     amax = flax_calibrate(model, variables, [jnp.asarray(x)])
-    if fused:
+    if graph == "fused":
         ref_fn = flax_fused(model, variables, amax, "mxu", min_pixels=0,
                             rows=8, interpret=True)
         got = fused_quantized_apply(port, amax, "mxu", min_pixels=0, rows=8)(
             torch.from_numpy(x))
+    elif graph == "dense_int8":
+        ref_fn = flax_dense(model, variables, amax, "mxu", min_pixels=0)
+        got = dense_quantized_apply(port, amax, "mxu", min_pixels=0)(
+            torch.from_numpy(x))
     else:
-        ref_fn = flax_quantized(model, variables, amax, "mxu")
-        got = quantized_apply(port, amax, "mxu")(torch.from_numpy(x))
+        ref_fn = flax_quantized(model, variables, amax, graph)
+        got = quantized_apply(port, amax, graph)(torch.from_numpy(x))
     ref = np.asarray(jax.jit(ref_fn)(jnp.asarray(x)), np.float32)
     err = np.abs(got.float().numpy() - ref)
     assert err.mean() < 5e-3 and err.max() < 5e-2, (err.mean(), err.max())
