@@ -70,7 +70,32 @@ non-zero and prints no result):
              (artifact.json + params.msgpack) and served from it, against
              the float graph; a torch.export round trip of the float
              flagship at batch 1 against eager; the export's seconds.
- 12. the kernels line (JSON), then the last line
+ 12. quality the flagship's training recipe through emx_torch.bench.
+             quality_run.main (the `quality` command) at full width: s2d 4,
+             norm batch, folded head 128, bf16, remat, batch 16 at 512x512,
+             corpus mixed3, cut to 20 steps (the lr drops at step 14) on
+             128 images, then resumed to 24 steps. Gates: every logged
+             loss finite; quality.json, state_bn.npz and artifact.npz
+             written with emx's keys; the folded model within 0.05 dB of
+             the BatchNorm model; the second call resumed from step 20
+             (logged steps 1..24 once each, lr 1e-4); one K2 launch per
+             step; the artifact served over HTTP for one 512x512 request.
+ 13. qat     the flagship's tail distillation through emx_torch.bench.
+             qat_finetune.head_distill (the `qat-finetune --scope=decoder2`
+             command) on the flagship bundle's float parameters: mixed3
+             (128 images), batch 16, lr 5e-5, mode mxu, cut to 300 steps.
+             Gates: the float val PSNR and the bundle's recorded int8
+             recipe within 0.05 dB of the bundle's record; the fake-quant
+             tail against the int8 graph above 35 dB before and after
+             training; finite losses; the QAT PSNR within 1 dB of the
+             PTQ one (a fresh calibration, reported); the candidate
+             reloaded scores as head_distill scored it (0.001 dB) on the
+             five ladders, and its K1-fused graph agrees with its int8
+             graph above 35 dB and is not below it by 0.05 dB per family.
+             Then 10 steps of qat_finetune.main(target="float") at full
+             width: fake-quant against int8 above 35 dB before the first
+             step, finite losses.
+ 14. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
@@ -93,7 +118,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from emx_torch.bench.flagship_decision import (bundle_graph,
+from emx_torch.bench import qat_finetune, quality_run
+from emx_torch.bench.flagship_decision import (all_ladders, bundle_graph,
                                                capped_margin_sum,
                                                family_rows, file_sha256,
                                                throughput)
@@ -1088,20 +1114,279 @@ def phase_export(device: torch.device, cfg: ExportSmokeConfig) -> dict:
     return {"export_s": export_s, "err_dir": err_dir, "err_export": err_exp}
 
 
+QUALITY_JSON = "docs/runs/quality_r5/quality.json"   # emx's record
+
+
+@dataclasses.dataclass(frozen=True)
+class QualitySmokeConfig:
+    # The flagship's recipe (docs/runs/quality_r5/quality.json), cut:
+    # 20 steps, not 60000 (the lr drops at int(0.7 * 20) = 14), then a
+    # resumed call to 24; a corpus of 128 images, not 1024.
+    steps: int = 20
+    resume_steps: int = 24
+    batch: int = 16
+    s2d: int = 4
+    norm: str = "batch"
+    folded_head: int = 128
+    corpus: str = "mixed3"
+    corpus_size: int = 128
+    fold_tol_db: float = 0.05
+    # K2 launches per train step (0 where no kernel runs).
+    k2_per_step: int = 1
+
+
+def _npz_keys(path: str) -> set:
+    with np.load(path) as z:
+        return set(z.files)
+
+
+def phase_quality(device: torch.device, cfg: QualitySmokeConfig) -> dict:
+    """quality_run.main twice (the second call resumes), the records it
+    writes, and its bundle served; gated as this file's docstring says."""
+    failures = []
+    with open(QUALITY_JSON) as f:
+        emx_keys = set(json.load(f))
+    kw = dict(s2d=cfg.s2d, batch=cfg.batch, norm=cfg.norm,
+              folded_head=cfg.folded_head, corpus=cfg.corpus,
+              corpus_size=cfg.corpus_size, log_every=1, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "quality")
+        fused_poisson_degrade.launches = 0
+        t0 = time.perf_counter()
+        first = quality_run.main(run, steps=cfg.steps, **kw)
+        first_s = time.perf_counter() - t0
+        written = {name: os.path.exists(os.path.join(run, name))
+                   for name in ("quality.json", "state_bn.npz",
+                                "artifact.npz")}
+        state_keys = _npz_keys(os.path.join(run, "state_bn.npz"))
+        art_keys = _npz_keys(os.path.join(run, "artifact.npz"))
+        t1 = time.perf_counter()
+        second = quality_run.main(run, steps=cfg.resume_steps, **kw)
+        second_s = time.perf_counter() - t1
+        launches = fused_poisson_degrade.launches
+        lines = read_jsonl(os.path.join(run, "metrics.jsonl"))
+        ckpt = Checkpointer(os.path.join(run, "ckpt"))
+        lr = torch.load(ckpt._path(ckpt.latest_step()), map_location="cpu",
+                        weights_only=True)["optimizer"]["param_groups"][0][
+                            "lr"]
+        with open(os.path.join(run, "quality.json")) as f:
+            record = json.load(f)
+        size = quality_run.SIZE
+        rng = np.random.default_rng(8)
+        noisy = degrade(rng, smooth_field(rng, size, size), DOSE)[0]
+        srv = serve_artifact(os.path.join(run, "artifact.npz"), port=0,
+                             device=device)
+        try:
+            out = post(srv.port, noisy)
+        finally:
+            srv.stop()
+    _check_output("quality artifact request", out, noisy.shape)
+    losses = [ln["loss"] for ln in lines]
+    steps = [ln["step"] for ln in lines]
+    _gate(failures, bool(np.isfinite(losses).all()),
+          f"non-finite loss in {losses}")
+    _gate(failures, steps == list(range(1, cfg.resume_steps + 1)),
+          f"logged steps {steps}: the second call did not resume at "
+          f"{cfg.steps}")
+    _gate(failures, (first["steps"], second["steps"])
+          == (cfg.steps, cfg.resume_steps),
+          f"quality.json steps {first['steps']}, {second['steps']}")
+    _gate(failures, all(written.values()), f"records written: {written}")
+    _gate(failures, set(record) == emx_keys,
+          f"quality.json keys {sorted(set(record) ^ emx_keys)} differ "
+          f"from emx's")
+    _gate(failures, "__meta_json__" in state_keys and any(
+        k.startswith("batch_stats/") for k in state_keys),
+        "state_bn.npz lacks batch statistics or meta")
+    _gate(failures, "__config_json__" in art_keys
+          and not any("BatchNorm" in k for k in art_keys),
+          "artifact.npz is not a folded bundle")
+    for rec in (first, second):
+        _gate(failures, abs(rec["nn_folded_psnr"] - rec["nn_psnr"])
+              <= cfg.fold_tol_db + 1e-9,
+              f"folded {rec['nn_folded_psnr']} vs BatchNorm "
+              f"{rec['nn_psnr']} dB")
+    _gate(failures, lr == 1e-4, f"lr at step {cfg.resume_steps} is {lr}")
+    expected = cfg.k2_per_step * cfg.resume_steps
+    _gate(failures, launches == expected,
+          f"K2 launched {launches} times, expected {expected}")
+    log("quality", f"cuts: {cfg.steps} steps of 60000 (lr 1e-3 -> 1e-4 at "
+        f"step {int(0.7 * cfg.steps)}), resumed to {cfg.resume_steps}; "
+        f"corpus {cfg.corpus} of {cfg.corpus_size} images, not 1024")
+    log("quality", f"first call {first_s:.1f} s: train_img_per_s "
+        f"{first['train_img_per_s']}, nn {first['nn_psnr']} dB, folded "
+        f"{first['nn_folded_psnr']}, identity {first['identity_psnr']}, "
+        f"best classical {first['best_classical']}, ood {first['ood_psnr']}")
+    log("quality", f"resumed call {second_s:.1f} s ({len(lines)} logged "
+        f"steps, lr {lr}): train_img_per_s {second['train_img_per_s']}, "
+        f"nn {second['nn_psnr']} dB, folded {second['nn_folded_psnr']}; "
+        f"K2 launches {launches} (expected {expected}); records "
+        f"{sorted(written)}; artifact served a {noisy.shape} request"
+        + (f" on {card_name_and_power()}" if device.type == "cuda" else ""))
+    if failures:
+        raise AssertionError("quality: " + "; ".join(failures))
+    return {"launches": launches, "first": first, "second": second,
+            "seconds": first_s + second_s}
+
+
+@dataclasses.dataclass(frozen=True)
+class QatSmokeConfig:
+    # The flagship's tail distillation (docs/runs/qat_r5/
+    # qat_tail_decoder2.json), cut to 300 steps of 12000 on a corpus of
+    # 128 images, not 1024.
+    bundle: str = "docs/runs/flagship/artifact_int8.npz"
+    steps: int = 300
+    batch: int = 16
+    lr: float = 5e-5
+    mode: str = "mxu"
+    scope: str = "decoder2"
+    corpus: str = "mixed3"
+    corpus_size: int = 128
+    log_every: int = 25
+    fused_rows: int = 32
+    float_steps: int = 10
+    psnr_tol_db: float = 0.05
+    min_tail_psnr_db: float = 35.0
+    qat_vs_ptq_db: float = 1.0
+    # K2 launches per step, K1 launches per fused forward (0 where no
+    # kernel runs).
+    k2_per_step: int = 1
+    k1_per_forward: int = 6
+
+
+def _keeping(fn, outs: list):
+    """`fn`, keeping each output in `outs`."""
+    def wrapped(x):
+        y = fn(x)
+        outs.append(y.float())
+        return y
+    return wrapped
+
+
+def phase_qat(device: torch.device, cfg: QatSmokeConfig) -> dict:
+    """head_distill on the bundle's float parameters, its candidate
+    reloaded and scored unfused and K1-fused, then a few steps of the
+    full-model fake-quant finetune; gated as this file's docstring
+    says."""
+    failures = []
+    quant = read_artifact(cfg.bundle)[2]
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_poisson_degrade.launches = 0
+        t0 = time.perf_counter()
+        out = qat_finetune.head_distill(
+            cfg.bundle, tmp, cfg.steps, cfg.batch, cfg.lr, mode=cfg.mode,
+            scope=cfg.scope, corpus=cfg.corpus,
+            corpus_size=cfg.corpus_size, log_every=cfg.log_every,
+            device=device)
+        distill_s = time.perf_counter() - t0
+        k2_distill = fused_poisson_degrade.launches
+        ladders = all_ladders(device)
+        recipe, _ = bundle_graph(cfg.bundle, device)
+        recipe_psnr = mean_psnr(recipe(ladders["val"][0]), ladders["val"][1])
+        unfused, _ = bundle_graph(out["candidate_bundle"], device)
+        fused, _ = bundle_graph(out["candidate_bundle"], device,
+                                cfg.fused_rows)
+        u_outs, f_outs = [], []
+        rows = {"unfused": family_rows(_keeping(unfused, u_outs), ladders)}
+        fused_sepconv.launches = 0
+        rows["fused"] = family_rows(_keeping(fused, f_outs), ladders)
+        k1 = fused_sepconv.launches
+        agree = [float(psnr(f, u)) for f, u in zip(f_outs, u_outs)]
+        del recipe, unfused, fused, ladders, u_outs, f_outs
+        fused_poisson_degrade.launches = 0
+        t1 = time.perf_counter()
+        fout = qat_finetune.main(cfg.bundle, tmp, cfg.float_steps,
+                                 cfg.batch, target="float",
+                                 corpus_size=cfg.corpus_size, log_every=1,
+                                 device=device)
+        float_s = time.perf_counter() - t1
+        k2_float = fused_poisson_degrade.launches
+    for name, got, want in (("float", out["float_psnr"],
+                             quant["float_psnr"]),
+                            ("recorded-recipe ptq", recipe_psnr,
+                             quant["psnr"])):
+        _gate(failures, abs(got - want) <= cfg.psnr_tol_db + 1e-9,
+              f"{name} psnr {got} vs the bundle's {want}")
+    tail = out["tail_int8_psnr"]
+    for when in ("before", "after"):
+        _gate(failures, tail[when] > cfg.min_tail_psnr_db,
+              f"fake-quant tail against the int8 graph {when} training: "
+              f"{tail[when]} dB")
+    losses = out["loss_trace"] + fout["loss_trace"]
+    _gate(failures, len(out["loss_trace"]) == cfg.steps // cfg.log_every
+          and bool(np.isfinite(losses).all()), f"loss traces {losses}")
+    _gate(failures, abs(out["qat_psnr"] - out["ptq_psnr"])
+          <= cfg.qat_vs_ptq_db, f"qat {out['qat_psnr']} vs ptq "
+          f"{out['ptq_psnr']} dB")
+    for fam, a in zip(FAMILIES, agree):
+        u, f = rows["unfused"][fam]["nn_psnr"], rows["fused"][fam]["nn_psnr"]
+        own = out["families"][fam]["nn_psnr"]
+        # The reloaded candidate scores as head_distill scored it; its
+        # fused graph (six blocks on K1 in bf16, not int8) agrees with
+        # the int8 graph and loses nothing to it.
+        _gate(failures, abs(u - own) <= 1e-3 + 1e-9,
+              f"{fam} reloaded candidate {u} vs head_distill's {own} dB")
+        _gate(failures, a > MIN_FUSED_VS_INT8_PSNR_DB,
+              f"{fam} fused against unfused outputs {a:.3f} dB")
+        _gate(failures, f >= u - cfg.psnr_tol_db - 1e-9,
+              f"{fam} candidate fused {f} below unfused {u} dB")
+        log("qat", f"candidate {fam}: unfused {u:.3f} (head_distill "
+            f"{own:.3f}), fused {f:.3f} ({f - u:+.3f}), outputs agree at "
+            f"{a:.2f} dB; best classical "
+            f"{rows['unfused'][fam]['best_classical']}")
+    _gate(failures, fout["fq_int8_psnr"] > cfg.min_tail_psnr_db,
+          f"full-model fake quant against int8 {fout['fq_int8_psnr']} dB")
+    want_k2 = cfg.k2_per_step * (cfg.steps + 1 + cfg.float_steps)
+    want_k1 = cfg.k1_per_forward * len(FAMILIES)
+    _gate(failures, k2_distill + k2_float == want_k2,
+          f"K2 launched {k2_distill} + {k2_float} times, expected {want_k2}")
+    _gate(failures, k1 == want_k1,
+          f"K1 launched {k1} times scoring the fused candidate, expected "
+          f"{want_k1}")
+    log("qat", f"cuts: {cfg.steps} steps of 12000, corpus {cfg.corpus} of "
+        f"{cfg.corpus_size} images, not 1024; full-model main "
+        f"{cfg.float_steps} steps")
+    log("qat", f"float {out['float_psnr']} (bundle {quant['float_psnr']}), "
+        f"the bundle's recorded recipe {recipe_psnr} (bundle "
+        f"{quant['psnr']}), ptq after a fresh calibration "
+        f"{out['ptq_psnr']} (reported), qat {out['qat_psnr']}, qat float "
+        f"{out['qat_float_psnr']} dB; tail against int8 {tail}; capped "
+        f"margin sum {out['capped_margin_sum']}; ood "
+        f"{out['ood_psnr_before']} -> {out['ood_psnr']}")
+    log("qat", f"loss trace {out['loss_trace']}; distillation "
+        f"{out['train_s']} s ({cfg.steps / max(out['train_s'], 1e-9):.2f} "
+        f"steps/s), head_distill {distill_s:.1f} s, qat img/s "
+        f"{out['qat_img_per_s']}; K2 launches {k2_distill} + {k2_float} "
+        f"(expected {want_k2}), K1 {k1} (expected {want_k1})")
+    log("qat", f"main(target=float) {cfg.float_steps} steps in {float_s:.1f}"
+        f" s: fake quant against int8 {fout['fq_int8_psnr']} dB before the "
+        f"first step, losses {fout['loss_trace']}, qat {fout['qat_psnr']}; "
+        f"phase {time.perf_counter() - t0:.1f} s"
+        + (f" on {card_name_and_power()}" if device.type == "cuda" else ""))
+    if failures:
+        raise AssertionError("qat: " + "; ".join(failures))
+    return {"k2_launches": k2_distill + k2_float, "k1_launches": k1,
+            "distill": out, "float": fout, "rows": rows, "agree": agree,
+            "recipe_psnr": recipe_psnr, "seconds": distill_s + float_s}
+
+
 def kernels_line(kernel_results: list[dict], launches: int,
                  degrade: dict, degrade_launches: int,
-                 phase_launches: dict | None = None) -> dict:
+                 phase_launches: dict | None = None,
+                 degrade_phase_launches: dict | None = None) -> dict:
     """K1: times summed over the six flagship shapes at B=8 (one B=8
     forward's fused blocks), and at B=1 under `b1`; error over every
     shape checked, launches on the serving path. K2: times at the
     training batch (16, 512, 512), error over every check, launches on
-    the training path; K1's `phase_launches` counts each path that runs
-    it. `ms`, `plain_ms` and `library_ms` are host-paced,
+    the training path; each kernel's `phase_launches` counts each path
+    that runs it (K2's when given). `ms`, `plain_ms` and `library_ms` are host-paced,
     as the line has given them from the start; `device_ms` and
     `library_device_ms` are the card's own times (`both_times`)."""
     on_card = any("ms" in r for r in kernel_results)
     sums = flagship_sums(kernel_results, 8) if on_card else {}
     b1 = flagship_sums(kernel_results, 1) if on_card else {}
+    k2_phases = ({"phase_launches": degrade_phase_launches}
+                 if degrade_phase_launches else {})
     return {"kernels": [{
         "name": "K1 fused_sepconv", "route": "cuda",
         "source": "emx_torch/csrc/sepconv.cu",
@@ -1129,6 +1414,7 @@ def kernels_line(kernel_results: list[dict], launches: int,
         "library_ms": degrade.get("library_ms"),
         "device_ms": degrade.get("device_ms"),
         "library_device_ms": degrade.get("library_device_ms"),
+        **k2_phases,
     }]}
 
 
@@ -1147,15 +1433,19 @@ def main() -> None:
         f"{trained['step_ms']:.2f} ms step: "
         f"{degraded['device_ms'] / trained['step_ms']:.4%}")
     del trained
+    quality = phase_quality(device, QualitySmokeConfig())
     decided = phase_decision(device, DecisionSmokeConfig())
     phase_variants(device, DecisionSmokeConfig())
     auto = phase_auto(device, AutoSmokeConfig())
     phase_export(device, ExportSmokeConfig())
+    qat = phase_qat(device, QatSmokeConfig())
     print(json.dumps(kernels_line(
         kernel_results, served["launches"], degraded, trained_launches,
         {"serve": served["launches"], "deploy": deployed["launches"],
-         "decision": decided["launches"], "auto": auto["launches"]})),
-        flush=True)
+         "decision": decided["launches"], "auto": auto["launches"],
+         "qat": qat["k1_launches"]},
+        {"train": trained_launches, "quality": quality["launches"],
+         "qat": qat["k2_launches"]})), flush=True)
     log("done", f"{time.perf_counter() - t0:.1f} s on {info['smi']}; "
         f"deploy K1 launches {deployed['launches']}")
     print(json.dumps({"ok": True, "device": {

@@ -80,18 +80,19 @@ def rebuild(clean: torch.Tensor, counts: torch.Tensor):
     return lq, img * ratio
 
 
-def ladder_record(family: str, path: str = LADDERS) -> dict:
-    """What the ladder file records for `family` (numpy): counts, doses,
-    seed, the fingerprint and sha256 of emx's clean images, and emx's
-    per-image identity PSNR."""
-    with np.load(path) as z:
+def ladder_record(family: str, path: str | None = None) -> dict:
+    """What the ladder file (`LADDERS` unless `path` names another)
+    records for `family` (numpy): counts, doses, seed, the fingerprint
+    and sha256 of emx's clean images, and emx's per-image identity
+    PSNR."""
+    with np.load(path or LADDERS) as z:
         return {k: z[f"{family}_{k}"] for k in
                 ("counts", "doses", "seed", "fingerprint", "sha256",
                  "identity_psnr")}
 
 
 def load_ladder(family: str, device: str | torch.device = "cuda",
-                path: str = LADDERS):
+                path: str | None = None):
     """(noisy, target), (32, 512, 512) float32 on `device`. Raises
     ValueError when the file's counts do not have the doses' shape or
     the clean images made here miss the recorded fingerprint."""
@@ -113,12 +114,13 @@ def load_ladder(family: str, device: str | torch.device = "cuda",
     return rebuild(clean, torch.from_numpy(counts).to(device))
 
 
-def val_ladder(device: str | torch.device = "cuda", path: str = LADDERS):
+def val_ladder(device: str | torch.device = "cuda",
+               path: str | None = None):
     return load_ladder("val", device, path)
 
 
 def ood_ladder(family: str, device: str | torch.device = "cuda",
-               path: str = LADDERS):
+               path: str | None = None):
     """family: "ctf", "grains", "filaments" or "porous"."""
     return load_ladder(f"ood_{family}", device, path)
 

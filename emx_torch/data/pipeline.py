@@ -10,10 +10,12 @@
     and `porous_micrographs`, verbatim copies (numpy only,
     bit-identical);
   * `ctf_micrographs`: its numpy lattice copied (bit-identical), its
-    render on `torch.fft` in complex64 on a device.
+    render on `torch.fft` in complex64 on a device;
+  * `mixed_micrographs`, the training mixes of those families ('mixed',
+    'mixed3'): emx's composition, seed offsets and shuffle.
 
-`DataPipeline` (TIFF files through a thread pool) and the mixed corpora
-are not ported yet (ROADMAP.md Queue 1).
+`DataPipeline` (TIFF files through a thread pool) is not ported yet
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -320,4 +322,33 @@ def porous_micrographs(n: int, size: int = 512, seed: int = 0) -> np.ndarray:
         img = img + gy * (yy - 0.5) + gx * (xx - 0.5)
         lo, hi = img.min(), img.max()
         out[i] = (img - lo) / max(hi - lo, 1e-9)
+    return out
+
+
+def mixed_micrographs(n: int, size: int = 512, seed: int = 0,
+                      grains: bool = True, filaments: bool = False,
+                      device: str | torch.device = "cuda") -> np.ndarray:
+    """Diverse training corpus (emx's composition): n // 4 ctf
+    micrographs, n // 4 grains when `grains`, n // 4 filaments when
+    `filaments` (the 'mixed3' corpus), the rest synthetic; seeds offset
+    by +10_000 (ctf), +30_000 (grains) and +40_000 (filaments) so no
+    evaluation ladder leaks in; then shuffled by
+    numpy.random.default_rng(seed + 20_000). The ctf part renders on
+    `device` (torch.fft, within ~1e-6 of emx's XLA render); the result
+    is float32 numpy, as emx's."""
+    n_ctf = n // 4
+    n_grain = n // 4 if grains else 0
+    n_fil = n // 4 if filaments else 0
+    a = synthetic_micrographs(n - n_ctf - n_grain - n_fil, size, seed=seed)
+    b = ctf_micrographs(n_ctf, size, seed=seed + 10_000,
+                        device=device).cpu().numpy()
+    parts = [a, b]
+    if n_grain:
+        parts.append(grain_micrographs(n_grain, size, seed=seed + 30_000))
+    if n_fil:
+        parts.append(filament_micrographs(n_fil, size,
+                                          seed=seed + 40_000))
+    out = np.concatenate(parts, axis=0)
+    rng = np.random.default_rng(seed + 20_000)
+    rng.shuffle(out)
     return out

@@ -162,7 +162,8 @@ class BatchNorm(nn.Module):
 
 
 class Norm(nn.Module):
-    """Twin of emx.nn.blocks.Norm: 'none', 'group' or 'batch'."""
+    """Twin of emx.nn.blocks.Norm: 'none', 'group', 'instance' or
+    'batch'."""
 
     def __init__(self, kind: str, channels: int, dtype: torch.dtype):
         super().__init__()
@@ -175,13 +176,14 @@ class Norm(nn.Module):
         elif kind == "batch":
             self.BatchNorm_0 = BatchNorm(channels, dtype)
         elif kind == "instance":
-            raise NotImplementedError(
-                "norm='instance' is not ported yet (ROADMAP.md Queue 1)")
+            # flax GroupNorm(num_groups=None, group_size=1): one group
+            # per channel, under the same child name.
+            self.GroupNorm_0 = GroupNorm(channels, channels, dtype)
         elif kind != "none":
             raise ValueError(f"unknown norm kind {kind!r}")
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if self.kind == "group":
+        if self.kind in ("group", "instance"):
             return self.GroupNorm_0(x)
         if self.kind == "batch":
             return self.BatchNorm_0(x, train)

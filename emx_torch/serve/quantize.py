@@ -16,6 +16,11 @@
       mode='mxu2': 'mxu', and true depthwise convs run int8 too: int8
         input x int8 per-group kernel, rescaled per output channel.
     `capture` returns the float input of named convs beside the output.
+  * `fake_quant_apply(model, amax, mode)` is the differentiable twin of
+    `quantized_apply` for quantization-aware finetuning: every
+    calibrated conv sees its input on the int8 grid and, in 'mxu' (and
+    'mxu2' for true depthwise convs), its weight on the deployment grid,
+    with straight-through gradients.
 
 Quantized weights and scales are computed once, when the apply function
 is built. The quantized graph is a copy of the model's module tree with
@@ -25,6 +30,7 @@ the convs swapped; it shares the model's parameters.
 from __future__ import annotations
 
 import copy
+from collections.abc import Mapping
 from typing import Any, Callable, Iterable
 
 import numpy as np
@@ -32,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from emx_torch.nn.blocks import Conv, pad_same
+from emx_torch.nn.blocks import Conv, conv_nhwc, pad_same
 
 
 def _quantile(flat: torch.Tensor, q: float) -> torch.Tensor:
@@ -47,16 +53,18 @@ def _quantile(flat: torch.Tensor, q: float) -> torch.Tensor:
     return s[lo] * (1.0 - w_hi) + s[hi] * w_hi
 
 
-def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
-              per_channel: bool = True,
-              quantile: float | None = None) -> dict[str, Any]:
+def calibrate(model: nn.Module, batches: Iterable,
+              per_channel: bool = True, quantile: float | None = None,
+              return_order: bool = False):
     """Run `batches` through `model`, recording per-conv input ranges.
 
     Returns {conv_path: np.ndarray (C_in,)} when `per_channel`, else
     {conv_path: float}. `quantile` (e.g. 0.9995) takes that quantile of
     |x| per batch instead of the maximum: rare outliers saturate, the
-    grid gets finer."""
+    grid gets finer. `return_order` also returns the conv paths in the
+    order the forward first runs them (tail_param_names reads it)."""
     records: dict[str, np.ndarray] = {}
+    order: list[str] = []
 
     def hook(mod, args):
         ax = args[0].detach().float().abs()
@@ -64,6 +72,8 @@ def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
         r = (flat.amax(dim=0) if quantile is None
              else _quantile(flat, quantile)).cpu().numpy()
         r = r if per_channel else r[0]
+        if mod.path not in records:
+            order.append(mod.path)
         records[mod.path] = (np.maximum(records[mod.path], r)
                              if mod.path in records else r)
 
@@ -76,7 +86,8 @@ def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
     finally:
         for h in handles:
             h.remove()
-    return {k: (v if np.ndim(v) else float(v)) for k, v in records.items()}
+    amax = {k: (v if np.ndim(v) else float(v)) for k, v in records.items()}
+    return (amax, order) if return_order else amax
 
 
 def _scale_of(a) -> torch.Tensor:
@@ -302,5 +313,91 @@ def quantized_apply(model: nn.Module, amax: dict[str, Any],
         if paths:
             return out, tuple(store[p] for p in paths)
         return out
+
+    return apply_fn
+
+
+def _ste(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Fake-quantize with a straight-through gradient: the forward is the
+    int8 grid round-trip, the backward the identity (round has no
+    gradient)."""
+    q = torch.clamp(torch.round(x / scale), -127, 127) * scale
+    return x + (q - x).detach()
+
+
+class FakeQuantConv(Conv):
+    """A conv on the deployment grid, trainable: it holds the original
+    conv's weight and bias Parameters (so parameter names and gradients
+    are the model's) and computes, per call,
+      'store' (and depthwise convs in 'mxu'): the float conv of the
+        fake-quantized input;
+      'mxu' (and true depthwise convs in 'mxu2'): the float32 conv of
+        the fake-quantized input with the fake-quantized weight, the
+        activation scale folded in before per-output-channel weight
+        scales taken from the detached weight, then divided out."""
+
+    def __init__(self, conv: Conv, x_scale: torch.Tensor, mode: str):
+        nn.Module.__init__(self)
+        self.weight, self.bias = conv.weight, conv.bias
+        self.kernel, self.strides, self.rate = (conv.kernel, conv.strides,
+                                                conv.rate)
+        self.groups, self.dtype, self.path = conv.groups, conv.dtype, conv.path
+        self.register_buffer("x_scale", x_scale.to(conv.weight.device))
+        grouped = conv.groups != 1
+        self.int8_weight = mode != "store" and (
+            not grouped or (mode == "mxu2" and is_depthwise(conv)))
+        # A depthwise kernel (C, 1, 3, 3) reads input channel c in output
+        # channel c: the activation scale folds along the output axis.
+        self.scale_shape = (-1, 1, 1, 1) if grouped else (1, -1, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_fq = _ste(x.float(), self.x_scale)
+        if not self.int8_weight:
+            return super().forward(x_fq.to(x.dtype))
+        s = self.x_scale.reshape(self.scale_shape)
+        kf = self.weight.float() * s
+        w_scale = _weight_scale(kf.detach().abs().amax(dim=(1, 2, 3),
+                                                       keepdim=True))
+        k_fq = _ste(kf, w_scale) / s
+        out = conv_nhwc(x_fq, k_fq, self.strides, self.rate, self.groups)
+        return (out + self.bias.float()).to(x.dtype)
+
+
+def fake_quant_apply(model: nn.Module, amax: dict[str, Any],
+                     mode: str = "mxu", skip: Iterable[str] = ()
+                     ) -> Callable:
+    """Differentiable twin of `quantized_apply` for quantization-aware
+    finetuning: every calibrated conv not in `skip` becomes a
+    FakeQuantConv, so gradients steer the float parameters toward
+    int8-robust minima. `amax` stays fixed (static calibration: run
+    `calibrate` again after finetuning, for serving).
+
+    Returns fn(model_or_params, x, train=False): `model_or_params` is
+    `model` itself (the fake-quant graph shares its Parameters, so their
+    .grad fills) or a mapping of parameter names (`named_parameters`'
+    names) to tensors that stand in for those parameters in this call
+    (torch.func.functional_call; the others stay the model's)."""
+    if mode not in MODES:
+        raise ValueError(f"quantization mode {mode!r} is not one of {MODES}")
+    skip = set(skip)
+
+    def replace(mod):
+        if not isinstance(mod, Conv):
+            return None
+        p = mod.path
+        if p not in amax or p in skip or np.all(np.asarray(amax[p]) <= 0):
+            return mod
+        return FakeQuantConv(mod, _scale_of(amax[p]), mode)
+
+    graph = swap_modules(model, replace)
+
+    def apply_fn(model_or_params, x, train: bool = False):
+        if model_or_params is model:
+            return graph(x, train)
+        if isinstance(model_or_params, Mapping):
+            return torch.func.functional_call(graph, dict(model_or_params),
+                                              (x, train))
+        raise TypeError("fake_quant_apply's function takes the model it "
+                        "was built from or a mapping of its parameters")
 
     return apply_fn

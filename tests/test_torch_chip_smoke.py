@@ -340,3 +340,103 @@ def test_bundle_graph_variants(tiny_config, kw, mode):
     assert bool(torch.isfinite(out.float()).all())
     assert out.dtype == (torch.bfloat16 if kw.get("out_dtype")
                          else torch.float32)
+
+
+@pytest.fixture
+def on_tiny_ladders(tiny_ladders, monkeypatch):
+    """The bench tools read the ladder file's module path: the tiny
+    ladders stand in for the committed ones."""
+    from emx_torch.bench import ladders
+    monkeypatch.setattr(ladders, "LADDERS", tiny_ladders)
+
+
+def test_quality_phase(on_tiny_ladders, monkeypatch):
+    """The quality phase on a tiny width at 64x64: two steps, a resumed
+    third, emx's record keys, the fold within 0.05 dB, the bundle
+    served; no K2 launch on the CPU."""
+    monkeypatch.setattr(chip_smoke.quality_run, "MODEL",
+                        DenoiserConfig.tiny())
+    monkeypatch.setattr(chip_smoke.quality_run, "SIZE", 64)
+    cfg = chip_smoke.QualitySmokeConfig(steps=2, resume_steps=3, batch=2,
+                                        folded_head=16, corpus_size=8,
+                                        k2_per_step=0)
+    res = chip_smoke.phase_quality(CPU, cfg)
+    assert res["launches"] == 0
+    assert (res["first"]["steps"], res["second"]["steps"]) == (2, 3)
+    with pytest.raises(AssertionError, match="K2 launched 0 times"):
+        chip_smoke.phase_quality(CPU, dataclasses.replace(cfg,
+                                                          k2_per_step=1))
+
+
+def test_quality_smoke_config_is_the_flagship_recipe():
+    cfg = chip_smoke.QualitySmokeConfig()
+    with open(ROOT / chip_smoke.QUALITY_JSON) as f:
+        rec = json.load(f)
+    assert (cfg.s2d, cfg.norm, cfg.folded_head, cfg.batch, cfg.corpus) == (
+        rec["s2d"], rec["norm"], rec["folded_head"], rec["batch"],
+        rec["corpus"])
+    assert int(0.7 * cfg.steps) == 14 and cfg.resume_steps > cfg.steps
+    q = chip_smoke.QatSmokeConfig()
+    with open(ROOT / "docs/runs/qat_r5/qat_tail_decoder2.json") as f:
+        rec = json.load(f)
+    assert (q.scope, q.corpus, q.batch, q.lr, q.mode) == (
+        rec["scope"], rec["corpus"], rec["batch"], rec["lr"], rec["mode"])
+
+
+@pytest.fixture(scope="module")
+def tiny_qat_bundle(tiny_config, tiny_ladders, tmp_path_factory):
+    """The tiny bundle with the record a QAT bundle carries, computed by
+    emx on the tiny val ladder: its float PSNR and its int8 mxu PSNR
+    after calibrating on the ladder's first 8 inputs."""
+    cfg, variables, quant = emx_artifact.load_denoiser_artifact(
+        tiny_config.bundle, with_quant=True)
+    model = FlaxDenoiser(cfg)
+    noisy, clean = chip_smoke.load_ladder("val", CPU, tiny_ladders)
+    nj, cj = jnp.asarray(noisy.numpy()), jnp.asarray(clean.numpy())
+    amax = flax_calibrate(model, variables, [nj[:8]])
+    path = str(tmp_path_factory.mktemp("qat") / "artifact_int8.npz")
+    save_denoiser_artifact(path, cfg, variables, quant={
+        "mode": "mxu", "amax": amax,
+        "float_psnr": emx_psnr(model.apply(variables, nj), cj),
+        "psnr": emx_psnr(jax.jit(emx_quantized_apply(
+            model, variables, amax, "mxu"))(nj), cj)})
+    return path
+
+
+TINY_QAT = dict(steps=4, batch=2, corpus_size=4, log_every=2, fused_rows=8,
+                float_steps=2, k2_per_step=0, k1_per_forward=0)
+
+
+def test_qat_phase(tiny_qat_bundle, on_tiny_ladders):
+    """The qat phase on the tiny bundle: float and PTQ PSNR at emx's
+    record (0.05 dB), the tail against the int8 graph above 35 dB
+    before and after, the candidate unfused against fused, the
+    full-model float finetune."""
+    cfg = chip_smoke.QatSmokeConfig(bundle=tiny_qat_bundle, **TINY_QAT)
+    res = chip_smoke.phase_qat(CPU, cfg)
+    assert res["k1_launches"] == 0 and res["k2_launches"] == 0
+    assert len(res["distill"]["loss_trace"]) == 2
+    assert set(res["rows"]["fused"]) == set(chip_smoke.FAMILIES)
+
+
+def test_qat_phase_holds_the_bundle_record(tiny_qat_bundle, on_tiny_ladders,
+                                           tmp_path):
+    """With the bundle's recorded float PSNR moved 0.06 dB from what
+    the port measures, the 0.05 dB gate fails."""
+    cfg, flat, quant = chip_smoke.read_artifact(tiny_qat_bundle)
+    quant["float_psnr"] = round(quant["float_psnr"] + 0.06, 3)
+    path = str(tmp_path / "moved.npz")
+    chip_smoke.save_denoiser_artifact(path, cfg, {"params": flat},
+                                      quant=quant)
+    qcfg = chip_smoke.QatSmokeConfig(bundle=path, **TINY_QAT)
+    with pytest.raises(AssertionError, match="float psnr"):
+        chip_smoke.phase_qat(CPU, qcfg)
+
+
+def test_kernels_line_counts_k2_phases():
+    line = chip_smoke.kernels_line(
+        [{"max_abs_err": 0.0}], 7, {"max_abs_err": 0.0}, 30, {"serve": 7},
+        {"train": 30, "quality": 24, "qat": 311})
+    k1, k2 = line["kernels"]
+    assert k2["phase_launches"] == {"train": 30, "quality": 24, "qat": 311}
+    assert k2["launches"] == 30 and k1["phase_launches"] == {"serve": 7}

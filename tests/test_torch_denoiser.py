@@ -128,10 +128,21 @@ def test_converter_raises_on_leftovers():
 @pytest.mark.parametrize("head", ["full_res_head", "mid_res_head",
                                   "kernel_pred_head"])
 def test_unported_heads_raise(head):
+    """The heads that raised NotImplementedError until they were ported
+    now build and run (their parity with flax is in
+    tests/test_torch_heads.py); a norm the port does not know still
+    raises."""
+    from emx_torch.nn.init import init_parameters
+
     cfg = dataclasses.replace(DenoiserConfig.tiny(), space_to_depth=4,
                               **{head: 8})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Denoiser(cfg, device="cpu")
+    model = init_parameters(Denoiser(cfg, device="cpu"),
+                            torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        out = model(torch.rand((2, 64, 64)))
+    assert out.shape == (2, 64, 64) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="unknown norm"):
+        Denoiser(dataclasses.replace(cfg, norm="layer"), device="cpu")
 
 
 def test_default_device_is_cuda():

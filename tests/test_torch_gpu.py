@@ -19,11 +19,14 @@ from emx_torch.bench.ladders import load_ladder
 from emx_torch.data import denoiser_example, synthetic_micrographs
 from emx_torch.nn import Denoiser, DenoiserConfig
 from emx_torch.nn.blocks import Conv
+from emx_torch.nn.denoiser import FoldedHeadTail
+from emx_torch.nn.init import init_parameters
 from emx_torch.ops import degrade_kernel, sepconv_kernel
 from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
                                           poisson_degrade_reference)
 from emx_torch.ops.sepconv_kernel import fused_sepconv, sepconv_reference
-from emx_torch.serve.quantize import Int8DepthwiseConv
+from emx_torch.serve.quantize import (Int8DepthwiseConv, calibrate,
+                                      fake_quant_apply)
 from emx_torch.serve.select import auto_denoise, serving_candidates
 from emx_torch.train import TrainConfig, Trainer
 from emx_torch.utils.device import sm_count
@@ -266,3 +269,77 @@ def test_auto_denoise_on_the_card(cuda):
     for i, c in enumerate(chosen.tolist()):
         assert torch.equal(out[i], each[c, i])
     assert chosen.device.type == "cuda" and len(names) == len(cands)
+
+
+def _fake_quant_loss(model, amax, mode, x, target):
+    """The fake-quant output and each parameter's gradient of its mean
+    squared error to `target`, on the model's device."""
+    model.zero_grad(set_to_none=True)
+    out = fake_quant_apply(model, amax, mode)(model, x)
+    torch.mean((out - target) ** 2).backward()
+    # Copies: moving the model moves the .grad tensors with it.
+    return out.detach().cpu().clone(), {
+        n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["store", "mxu", "mxu2"])
+def test_fake_quant_on_the_card_matches_cpu(cuda, mode):
+    """fake_quant_apply on the card against its CPU result on the same
+    float32 model and inputs: outputs within the int8 grid tolerance of
+    tests/test_torch_qat.py (a value on a grid midpoint may take the
+    neighbouring level), gradients per parameter within 3e-2 of their
+    norm (1e-4 in 'store', which has no weight grid). TF32 off."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(DenoiserConfig.tiny(), norm="none",
+                              space_to_depth=4, folded_head=16)
+    model = init_parameters(Denoiser(cfg, device="cpu"),
+                            torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((2, 64, 64), generator=gen)
+    target = 0.25 + 0.5 * torch.rand((2, 64, 64), generator=gen)
+    amax = calibrate(model, [x])
+    ref_out, ref_g = _fake_quant_loss(model, amax, mode, x, target)
+    out, g = _fake_quant_loss(model.to(cuda), amax, mode, x.to(cuda),
+                              target.to(cuda))
+    err = (out - ref_out).abs()
+    assert float(err.mean()) < 1e-5 and float(err.max()) < 1e-3
+    tol = 1e-4 if mode == "store" else 3e-2
+    for name, ref in ref_g.items():
+        scale = max(float(ref.norm()), 1e-12)
+        assert float((g[name] - ref).norm()) / scale < tol, name
+
+
+@pytest.mark.gpu
+def test_tail_distill_step_on_the_card(cuda):
+    """One fake-quant step of a decoder2 tail in bf16 on the card: the
+    loss equals the CPU's within bf16 rounding, is finite, and the Adam
+    step moves the parameters."""
+    from emx_torch.bench.qat_finetune import adam
+    from emx_torch.train.losses import huberised_mse
+
+    cfg = dataclasses.replace(DenoiserConfig.tiny(), norm="none",
+                              space_to_depth=4, folded_head=16,
+                              dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(2)
+    f = cfg.features
+    cat = (torch.rand((2, 4, 4, cfg.aspp_out + f[1]), generator=gen),
+           torch.rand((2, 8, 8, f[1]), generator=gen),
+           torch.rand((2, 64, 64), generator=gen))
+    tgt = torch.rand((2, 64, 64), generator=gen)
+    losses = []
+    for device in ("cpu", cuda):
+        tail = init_parameters(FoldedHeadTail(cfg, "decoder2", device="cpu"),
+                               torch.Generator().manual_seed(3)).to(device)
+        inputs = tuple(t.to(device) for t in cat)
+        fq = fake_quant_apply(tail, calibrate(tail, [inputs]), "mxu")
+        before = [p.detach().clone() for p in tail.parameters()]
+        opt = adam(tail.parameters(), 1e-3)
+        loss = huberised_mse(fq(tail, inputs).float(), tgt.to(device))
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        assert any(not torch.equal(a, b) for a, b in
+                   zip(before, tail.parameters()))
+    assert np.isfinite(losses).all()
+    assert abs(losses[1] - losses[0]) <= 2e-2 * abs(losses[0])

@@ -61,3 +61,11 @@ print(len(names))
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 14
+
+
+@pytest.mark.parametrize("name", [
+    "cli.py", "bench/qat_finetune.py", "bench/quality_run.py",
+    "bench/quant_check.py", "bench/head_sweep.py", "bench/qat_profile.py"])
+def test_recipe_modules_are_checked(name):
+    """The recipe's modules and the CLI are among the files checked."""
+    assert ROOT / "emx_torch" / name in PORT_FILES
