@@ -25,9 +25,12 @@ non-zero and prints no result):
   4. degrade K2 (fused_poisson_degrade) against its plain version,
              identical on every element, at (16, 512, 512) with training
              doses and on constant images at rates 0.5 to 200, one launch
-             per call; its schedule; times of the kernel, the plain
-             version and torch.poisson + min/max + rescale, and the
-             card's least time for this data.
+             per call; at the training batch also captured in a CUDA
+             graph with its seed in a device tensor, each replay (a new
+             seed copied in) identical to the plain version, and timed;
+             its schedule; times of the kernel, the plain version and
+             torch.poisson + min/max + rescale, and the card's least
+             time for this data.
   5. serve   emx_torch.serve.server.serve_artifact on the flagship int8
              bundle with fused_rows=32: 512x512 requests and one
              1024x768 (tiled) request over HTTP. Checks shape, finite
@@ -47,7 +50,29 @@ non-zero and prints no result):
              directory), serve it with fused_rows=32 and answer a 512x512
              request: shape, finite [0, 1], six K1 launches; the PSNR
              gain is reported.
-  8. decision the flagship's DECISION ladder on the card: the five
+  8. graph   the train phase's config (BatchNorm, bf16, s2d 4, folded
+             head 128, remat, batch 16 at 512x512, nesterov) run as
+             Trainer(steps_per_launch=8): from one state, 8 eager steps
+             and one replay of a CUDA graph of 8 steps (K2 inside it, its
+             Philox key read from a device tensor) must agree in every
+             step's loss and in the parameters, buffers and optimizer
+             state (cudnn deterministic); then 32 eager steps against 4
+             replays: step ms, img/s, capture seconds, peak memory, and
+             from one profiled window each the device's busy ms and idle
+             share, kernels per step, the host's kernel and graph launches
+             per step and K2's device ms per step.
+  9. files   the microscopist's path through `python -m emx_torch.cli`:
+             a DM corpus (8 imaging 2048x2048 micrographs, one 3000x2600,
+             and three to reject: under min_side, spectroscopy mode,
+             truncated) written with the port's write_dm; `harvest`
+             (census, manifest count, stats keys); the loader's img/s on
+             the harvested TIFFs; `train-denoiser` at the CLI's default
+             full width (group norm, s2d 2), batch 8 of 512x512 crops,
+             steps_per_launch 8, 16 steps, then resumed from its
+             checkpoint to 24 (the cursor exact, the losses finite, one K2
+             launch a step); its directory artifact served over HTTP for
+             a 512x512 and a 1000x700 request.
+  10. decision the flagship's DECISION ladder on the card: the five
              ladders rebuilt from the committed Poisson counts
              (docs/runs/port_ladders/ladders.npz) with the identity PSNR
              held to emx's record in that file (+-0.01 dB); the bundle's
@@ -58,19 +83,19 @@ non-zero and prints no result):
              of DECISION.json's row for the bundle, the capped margin
              sum within +-0.1 of its 2.544; K1 launches while the fused
              graph scores; img/s at batch 96 of both graphs.
-  9. variants val-ladder PSNR of the 'mxu2', dense int8 and dense bf16
+  11. variants val-ladder PSNR of the 'mxu2', dense int8 and dense bf16
              graphs within +-0.05 dB of serve_perf.json's, and their
              img/s at batch 96.
- 10. auto    serve_artifact(bundle, auto=True, fused_rows=32): one request
+ 12. auto    serve_artifact(bundle, auto=True, fused_rows=32): one request
              per family and one tiled request over HTTP, finite outputs
              of the right shape, /metrics "chosen" counts summing to the
              native requests, K1 launches; on the val ladder auto_denoise's
              output equals, image by image, its chosen candidate's.
- 11. export  the bundle's float parameters saved as a directory artifact
+ 13. export  the bundle's float parameters saved as a directory artifact
              (artifact.json + params.msgpack) and served from it, against
              the float graph; a torch.export round trip of the float
              flagship at batch 1 against eager; the export's seconds.
- 12. quality the flagship's training recipe through emx_torch.bench.
+ 14. quality the flagship's training recipe through emx_torch.bench.
              quality_run.main (the `quality` command) at full width: s2d 4,
              norm batch, folded head 128, bf16, remat, batch 16 at 512x512,
              corpus mixed3, cut to 20 steps (the lr drops at step 14) on
@@ -80,7 +105,7 @@ non-zero and prints no result):
              the BatchNorm model; the second call resumed from step 20
              (logged steps 1..24 once each, lr 1e-4); one K2 launch per
              step; the artifact served over HTTP for one 512x512 request.
- 13. qat     the flagship's tail distillation through emx_torch.bench.
+ 15. qat     the flagship's tail distillation through emx_torch.bench.
              qat_finetune.head_distill (the `qat-finetune --scope=decoder2`
              command) on the flagship bundle's float parameters: mixed3
              (128 images), batch 16, lr 5e-5, mode mxu, cut to 300 steps.
@@ -95,7 +120,7 @@ non-zero and prints no result):
              Then 10 steps of qat_finetune.main(target="float") at full
              width: fake-quant against int8 above 35 dB before the first
              step, finite losses.
- 14. the kernels line (JSON), then the last line
+ 16. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
@@ -139,7 +164,7 @@ from emx_torch.ops.degrade_kernel import (fused_poisson_degrade,
 from emx_torch.ops.sepconv_kernel import fused_sepconv, sepconv_reference
 from emx_torch.serve.artifact import (load_denoiser_artifact, read_artifact,
                                       save_denoiser_artifact)
-from emx_torch.serve.export import (export_compiled, load_compiled,
+from emx_torch.serve.export import (export_compiled, load_compiled, nest,
                                     save_artifact)
 from emx_torch.serve.convert import load_flax_params, to_flax_params
 from emx_torch.serve.fused import fused_quantized_apply, row_band
@@ -149,6 +174,7 @@ from emx_torch.serve.select import auto_denoise, serving_candidates
 from emx_torch.serve.server import AUTO_SEED, serve_artifact
 from emx_torch.serve.tiling import _origins
 from emx_torch.train import Checkpointer, TrainConfig, Trainer
+from emx_torch.train.engine import WARMUP_STEPS
 from emx_torch.utils.device import card_name_and_power
 from emx_torch.utils.image import psnr, scale0to1
 from emx_torch.utils.metrics import read_jsonl
@@ -210,8 +236,13 @@ def phase_device(device: torch.device) -> dict:
     # The plain versions' float32 products run in full float32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:   # the port reads TIFF without PIL; whether the machine has it
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
     log("device", f"{kind}; device_count={count}; torch {torch.__version__}"
-        f" cuda {torch.version.cuda}")
+        f" cuda {torch.version.cuda}; {pil}")
     print(smi, flush=True)
     return {"kind": kind, "count": count, "smi": smi}
 
@@ -431,8 +462,10 @@ def _time_degrade(seed: int, imgs: torch.Tensor,
         span = torch.amax(c, dim=(1, 2), keepdim=True) - lo
         return torch.where(span > 0, (c - lo) / span, 0.5)
 
+    key = degrade_kernel.seed_tensor(seed, imgs.device)
+
     def kernel():
-        return fused_poisson_degrade(seed, imgs, scales)
+        return fused_poisson_degrade(key, imgs, scales)
 
     # The plain version waits for the card inside a call (device_ms could
     # not queue its calls ahead of the card), so it is timed host-paced.
@@ -446,6 +479,30 @@ def _time_degrade(seed: int, imgs: torch.Tensor,
     out["ops_ms"] = 1e3 * degrade_ops(rate, counts) / F32_OPS_PER_S
     out["small_rate_share"] = float((rate < 10.0).double().mean())
     return out
+
+
+def degrade_under_capture(imgs: torch.Tensor, scales: torch.Tensor,
+                          seeds: tuple[int, ...]) -> dict:
+    """K2 captured in a CUDA graph with its Philox key in a device tensor,
+    then replayed once per seed (each copied into the key first): every
+    replay against the plain version, element for element; and the time
+    of a replay (one K2 launch)."""
+    key = degrade_kernel.seed_tensor(seeds[0], imgs.device)
+    fused_poisson_degrade(key, imgs, scales)       # plan and occupancy
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_poisson_degrade(key, imgs, scales)
+    checks = []
+    for seed in seeds:
+        key.copy_(degrade_kernel.seed_tensor(seed, imgs.device))
+        graph.replay()
+        ref = poisson_degrade_reference(seed, imgs, scales)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        checks.append({"seed": seed, "max_abs_err": float(diff.max()),
+                       "differing": float((diff > 0).double().mean())})
+    return {"checks": checks, **both_times("captured_", graph.replay)}
 
 
 def phase_degrade(device: torch.device, b: int = 16,
@@ -468,6 +525,21 @@ def phase_degrade(device: torch.device, b: int = 16,
             plan = degrade_kernel.card_plan(
                 device.index or 0, imgs.shape[0],
                 imgs.shape[1] * imgs.shape[2])
+            if name == "training":
+                cap = degrade_under_capture(imgs, scales, (seed, seed + 1))
+                res["captured"] = cap
+                log("degrade", f"{name} under CUDA graph capture (the "
+                    f"cooperative launch captured), seed in a device "
+                    f"tensor: " + ", ".join(
+                        f"seed {c['seed']}: {c['differing']:.3e} of elements "
+                        f"differ, max abs {c['max_abs_err']:.3e}"
+                        for c in cap["checks"])
+                    + f"; a replay {cap['captured_device_ms']:.4f} ms "
+                    f"(host-paced {cap['captured_ms']:.4f})")
+                if any(c["differing"] > K2_MAX_DIFFERING
+                       for c in cap["checks"]):
+                    raise AssertionError(f"captured K2 disagrees with its "
+                                         f"plain version: {cap['checks']}")
             log("degrade", f"{name}: one cooperative launch of {plan.grid} "
                 f"blocks, {plan.ipb} items of {degrade_kernel.TILE} "
                 f"elements each")
@@ -754,6 +826,350 @@ def phase_train(device: torch.device, cfg: TrainSmokeConfig) -> dict:
     return {"model": model, "corpus": corpus, "losses": losses,
             "launches": launches, "step_ms": med, "fit_s": fit_s,
             "img_per_s": 1e3 * cfg.batch / med, "peak_bytes": peak}
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSmokeConfig:
+    """The train phase's flagship config, run eagerly and as CUDA graphs
+    of `k` steps (Trainer(steps_per_launch=k))."""
+    model: DenoiserConfig = FLAGSHIP_TRAIN
+    n_images: int = 64
+    size: int = 512
+    batch: int = 16
+    k: int = 8
+    optimizer: str = "nesterov"
+    learning_rate: float = 1e-3
+    seed: int = 0
+    # Eager steps before the comparison, so the optimizer state exists.
+    pre_steps: int = 2
+    timed_replays: int = 4
+    # Graph against eager, in parameters, buffers, optimizer state and
+    # each step's loss: exact under cudnn.deterministic.
+    tol: float = 0.0
+    # K2 launches per train step (0 where no kernel runs).
+    k2_per_step: int = 1
+
+
+def _restore_in_place(model, optimizer, saved: dict) -> None:
+    """Write `_clone_state`'s copies back into the live tensors."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(saved["model"][k])
+        for i, st in saved["optimizer"].items():
+            live = optimizer.state[params[i]]
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    live[k].copy_(v)
+
+
+def _max_state_diff(a: dict, b: dict) -> float:
+    diffs = [float((a["model"][k].double() - b["model"][k].double())
+                   .abs().max()) for k in a["model"]]
+    for i, st in a["optimizer"].items():
+        diffs += [float((v.double() - b["optimizer"][i][k].double())
+                        .abs().max()) for k, v in st.items()
+                  if torch.is_tensor(v)]
+    return max(diffs)
+
+
+def phase_graph(device: torch.device, cfg: GraphSmokeConfig) -> dict:
+    """From one state, `k` eager steps and one replay of a CUDA graph of
+    `k` steps (K2 inside it) must agree in every step's loss and in the
+    parameters, buffers and optimizer state; then 32 eager steps are
+    timed against 4 replays, and one of each is profiled."""
+    from emx_torch.bench.forward_profile import profile_forward
+
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        corpus = synthetic_micrographs(cfg.n_images, cfg.size,
+                                       seed=cfg.seed)
+        model = Denoiser(cfg.model, device=device)
+        tcfg = TrainConfig(learning_rate=cfg.learning_rate,
+                           optimizer=cfg.optimizer, log_every=0,
+                           seed=cfg.seed)
+        eager = Trainer(model, tcfg, example_fn=denoiser_example)
+        graphed = Trainer(model, dataclasses.replace(
+            tcfg, steps_per_launch=cfg.k), example_fn=denoiser_example)
+        state = eager.init()
+        data = DeviceDataset(corpus, PipelineConfig(
+            batch_size=cfg.batch, crop_size=cfg.size, seed=cfg.seed),
+            device=device)
+        k2_before = fused_poisson_degrade.launches
+        eager.fit(state, data, cfg.pre_steps)
+        start = _clone_state(model, state.optimizer)
+        cursor, step0 = data.state_dict(), state.step
+
+        it = iter(data)
+        rows = [torch.stack([m[k] for k in ("loss", "mse", "grad_norm")])
+                for m in (eager.step_fn(state, next(it))[1]
+                          for _ in range(cfg.k))]
+        eager_losses = torch.stack(rows)[:, 0].tolist()
+        after_eager = _clone_state(model, state.optimizer)
+
+        _restore_in_place(model, state.optimizer, start)
+        state.step = step0
+        data.load_state_dict(cursor)
+        it = iter(data)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        metrics = graphed._launch(state, [next(it) for _ in range(cfg.k)])
+        _sync(device)
+        graph_losses = metrics[:, 0].tolist()
+        after_graph = _clone_state(model, state.optimizer)
+        peak = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else 0)
+        stats = graphed.graph_stats
+        state_diff = _max_state_diff(after_eager, after_graph)
+        loss_diff = max(abs(a - b) for a, b in zip(eager_losses,
+                                                   graph_losses))
+        log("graph", f"one replay of {cfg.k} steps against {cfg.k} eager "
+            f"steps from step {step0}: losses {graph_losses} / "
+            f"{eager_losses}; max |loss difference| {loss_diff:.3e}, max "
+            f"|parameter, buffer, optimizer-state difference| "
+            f"{state_diff:.3e} (tolerance {cfg.tol}; cudnn deterministic)")
+        log("graph", f"capture {stats['capture_s']:.2f} s (after "
+            f"{WARMUP_STEPS} warm-up steps, undone); K2 launches per replay "
+            f"{graphed.graph.k2_per_replay} (expected "
+            f"{cfg.k2_per_step * cfg.k}); peak memory "
+            f"{peak / 2 ** 30:.2f} GiB")
+        if not (loss_diff <= cfg.tol and state_diff <= cfg.tol):
+            raise AssertionError(f"the graph departs from eager: loss "
+                                 f"{loss_diff}, state {state_diff}")
+        if graphed.graph.k2_per_replay != cfg.k2_per_step * cfg.k:
+            raise AssertionError(f"K2 launched {graphed.graph.k2_per_replay}"
+                                 f" times in a graph of {cfg.k} steps")
+
+        result = {"loss_diff": loss_diff, "state_diff": state_diff,
+                  "capture_s": stats["capture_s"], "peak_bytes": peak,
+                  "k2_per_replay": graphed.graph.k2_per_replay}
+        # Timed with cuDNN's own choice of algorithms, as training runs:
+        # the graph is captured again under it, before the clock starts.
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+        graphed.graph = None
+        if device.type == "cuda":
+            graphed._launch(state, [next(it) for _ in range(cfg.k)])
+            n_eager = cfg.timed_replays * cfg.k
+
+            def timed(fn, n):
+                _sync(device)
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                _sync(device)
+                return time.perf_counter() - t0
+
+            eager_s = timed(lambda: eager.step_fn(state, next(it)), n_eager)
+            graph_s = timed(lambda: graphed._launch(
+                state, [next(it) for _ in range(cfg.k)]),
+                cfg.timed_replays)
+            prof_e = profile_forward(
+                lambda _: eager.step_fn(state, next(it)), None, n=cfg.k,
+                match="degrade_")
+            prof_g = profile_forward(
+                lambda _: graphed._launch(state, [next(it) for _ in
+                                                  range(cfg.k)]),
+                None, n=1, match="degrade_")
+            card = card_name_and_power()
+            for name, secs, prof, per in (("eager", eager_s, prof_e, 1),
+                                          ("graph", graph_s, prof_g, cfg.k)):
+                step_ms = 1e3 * secs / n_eager
+                result[name] = {
+                    "step_ms": step_ms, "img_per_s": 1e3 * cfg.batch / step_ms,
+                    "profiled_step_ms": prof["wall_ms"] / per,
+                    "device_busy_ms": prof["device_busy_ms"] / per,
+                    "idle_share": prof["idle_share"],
+                    "kernels_per_step": prof["kernels_per_forward"] / per,
+                    "host_kernel_launches_per_step":
+                        prof["host_kernel_launches"] / per,
+                    "graph_launches_per_step": prof["graph_launches"] / per,
+                    "k2_device_ms_per_step": prof["matched_ms"] / per}
+                r = result[name]
+                log("graph", f"{name}: {step_ms:.2f} ms a step over "
+                    f"{n_eager} steps ({r['img_per_s']:.1f} img/s); "
+                    f"profiled: {r['profiled_step_ms']:.2f} ms, device busy "
+                    f"{r['device_busy_ms']:.2f} ms, idle share "
+                    f"{r['idle_share']:.3f}, {r['kernels_per_step']:.1f} "
+                    f"kernels a step from {r['host_kernel_launches_per_step']:.2f}"
+                    f" host kernel launches and {r['graph_launches_per_step']:.3f}"
+                    f" graph launches, K2 {r['k2_device_ms_per_step']:.4f} ms a "
+                    f"step; on {card}")
+        stats = graphed.graph_stats
+        result["launches"] = (fused_poisson_degrade.launches - k2_before
+                              - stats["captures"] * graphed.graph.k2_per_replay
+                              + stats["k2_replayed"])
+        result["graph_stats"] = dict(stats)
+        return result
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+
+
+@dataclasses.dataclass(frozen=True)
+class FilesSmokeConfig:
+    """The microscopist's path through `python -m emx_torch.cli`: a DM
+    corpus, `harvest`, `train-denoiser` from the harvested TIFFs (as a
+    CUDA graph of `steps_per_launch` steps), its resume, and the artifact
+    served."""
+    n_micrographs: int = 8          # imaging 2048x2048, DM3 and DM4
+    size: int = 2048
+    odd_shape: tuple[int, int] = (3000, 2600)   # the non-integer resize
+    small_side: int = 400                       # under min_side 512
+    harvest_size: int = 2048
+    batch: int = 8
+    crop: int = 512
+    steps: int = 16
+    resume_steps: int = 24
+    steps_per_launch: int = 8
+    ckpt_every: int = 8
+    # DenoiserConfig().scaled(scale): 1.0 is the CLI's default width.
+    scale: float = 1.0
+    request_shapes: tuple = ((512, 512), (1000, 700))
+    loader_batches: int = 6
+    k2_per_step: int = 1
+    seed: int = 0
+
+
+def write_dm_corpus(root: str, cfg: FilesSmokeConfig) -> dict:
+    """Imaging micrographs (synthetic_micrographs as counts), one of
+    odd_shape, and three files harvest must reject: one under min_side,
+    one in spectroscopy mode, one truncated. Returns the census expected."""
+    from emx_torch.io.dm import write_dm
+
+    imgs = synthetic_micrographs(cfg.n_micrographs, cfg.size, seed=cfg.seed)
+    for i, im in enumerate(imgs):
+        write_dm(os.path.join(root, f"m{i}.dm{3 + i % 2}"),
+                 (im * 900 + 40).astype(np.float32))
+    odd = synthetic_micrographs(1, max(cfg.odd_shape), seed=cfg.seed + 1)[0]
+    write_dm(os.path.join(root, "odd.dm4"), (odd[:cfg.odd_shape[0],
+             :cfg.odd_shape[1]] * 900 + 40).astype(np.float32))
+    write_dm(os.path.join(root, "small.dm3"),
+             (imgs[0, :cfg.small_side, :cfg.small_side] * 900 + 40)
+             .astype(np.float32))
+    write_dm(os.path.join(root, "spectrum.dm3"),
+             (imgs[1] * 900 + 40).astype(np.float32),
+             operation_mode="SPECTROSCOPY")
+    raw = open(os.path.join(root, "m0.dm3"), "rb").read()
+    with open(os.path.join(root, "truncated.dm3"), "wb") as f:
+        f.write(raw[:len(raw) // 2])
+    usable = cfg.n_micrographs + 1
+    return {"total": usable + 3, "decode_failed": 1, "not_imaging": 1,
+            "too_small": 1, "too_dim": 0, "usable": usable}
+
+
+def _cli(*argv: str) -> list[str]:
+    """Run `python -m emx_torch.cli` in a subprocess; its stdout lines.
+    It fails the phase if the command fails."""
+    import subprocess
+    import sys
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "emx_torch.cli", *argv],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"emx_torch.cli {argv[0]} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    log("files", f"emx_torch.cli {argv[0]} done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return proc.stdout.splitlines()
+
+
+def phase_files(device: torch.device, cfg: FilesSmokeConfig) -> dict:
+    """harvest a DM corpus, train-denoiser on the harvested TIFFs (the
+    CLI's default full width, steps_per_launch a CUDA graph), resume it
+    from its checkpoint, and serve its directory artifact over HTTP."""
+    import ast
+
+    from emx_torch.bench.pipeline_bench import loader_rate
+    from emx_torch.data.pipeline import DataPipeline
+    from emx_torch.physics.stats import STAT_NAMES
+
+    dev = device.type
+    with tempfile.TemporaryDirectory() as tmp:
+        dm_dir, out, run = (os.path.join(tmp, d)
+                            for d in ("dm", "harvested", "run"))
+        os.makedirs(dm_dir)
+        t0 = time.perf_counter()
+        expected = write_dm_corpus(dm_dir, cfg)
+        log("files", f"DM corpus of {expected['total']} files in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lines = _cli("harvest", f"--src={dm_dir}", f"--out={out}",
+                     f"--size={cfg.harvest_size}", f"--device={dev}")
+        census = ast.literal_eval(lines[0].removeprefix("census: "))
+        records = [json.loads(x) for x in open(
+            os.path.join(out, "manifest_0.jsonl"))]
+        log("files", f"census {census}; {len(records)} micrographs reaped")
+        if census != expected or len(records) != expected["usable"]:
+            raise AssertionError(f"harvest: census {census}, "
+                                 f"{len(records)} records; expected "
+                                 f"{expected}")
+        if any(set(r["stats"]) != set(STAT_NAMES) for r in records):
+            raise AssertionError("harvest: stats keys are not STAT_NAMES")
+
+        paths = sorted(r["path"] for r in records)
+        loader = loader_rate(DataPipeline(paths, PipelineConfig(
+            batch_size=cfg.batch, crop_size=cfg.crop, seed=cfg.seed)),
+            n_batches=cfg.loader_batches)
+        log("files", f"DataPipeline on the harvested TIFFs: {loader:.1f} "
+            f"img/s (batch {cfg.batch} of {cfg.crop}x{cfg.crop} crops of "
+            f"{cfg.harvest_size}x{cfg.harvest_size} float32 TIFFs, "
+            f"median of 3 windows of {cfg.loader_batches})")
+
+        train = [f"--data_dir={out}", f"--model_dir={run}",
+                 f"--batch_size={cfg.batch}", f"--crop_size={cfg.crop}",
+                 f"--steps_per_launch={cfg.steps_per_launch}",
+                 f"--ckpt_every_steps={cfg.ckpt_every}",
+                 f"--scale={cfg.scale}", f"--seed={cfg.seed}",
+                 f"--device={dev}"]
+        first = json.loads(_cli("train-denoiser", *train,
+                                f"--steps={cfg.steps}")[-1])
+        lines = _cli("train-denoiser", *train,
+                     f"--steps={cfg.resume_steps}")
+        second = json.loads(lines[-1])
+        resumed = lines[0]
+        # Each step launches K2, and so does each warm-up step before a
+        # capture (run eagerly, then undone).
+        k2_expected = [(cfg.k2_per_step if dev == "cuda" else 0)
+                       * (n + WARMUP_STEPS * r["graph"]["captures"])
+                       for n, r in ((cfg.steps, first),
+                                    (cfg.resume_steps - cfg.steps, second))]
+        for name, res in (("first", first), ("resumed", second)):
+            log("files", f"train-denoiser {name}: steps {res['start']} -> "
+                f"{res['step']}, loss {res['loss']:.4f}, "
+                f"{res['img_per_s']:.1f} img/s over the whole fit (capture "
+                f"{res['graph']['capture_s']:.2f} s included; "
+                f"{res['graph']['replays']} replays), K2 launches "
+                f"{res['k2_launches']}, cursor {res['cursor']}")
+        want_resume = (f"resumed from step {cfg.steps} at cursor "
+                       f"{first['cursor']}")
+        if resumed != want_resume:
+            raise AssertionError(f"train-denoiser resumed as {resumed!r}, "
+                                 f"expected {want_resume!r}")
+        if not (first["step"] == cfg.steps
+                and second["step"] == cfg.resume_steps
+                and np.isfinite([first["loss"], second["loss"]]).all()):
+            raise AssertionError(f"train-denoiser: {first}, {second}")
+        if [first["k2_launches"], second["k2_launches"]] != k2_expected:
+            raise AssertionError(f"K2 launched {first['k2_launches']}, "
+                                 f"{second['k2_launches']} times; expected "
+                                 f"{k2_expected}")
+
+        srv = serve_artifact(os.path.join(run, "artifact"), port=0,
+                             device=device)
+        try:
+            rng = np.random.default_rng(cfg.seed + 7)
+            for shape in cfg.request_shapes:
+                noisy, _ = degrade(rng, smooth_field(rng, *shape), DOSE)
+                _check_output(f"files request {shape}", post(srv.port, noisy),
+                              noisy.shape)
+        finally:
+            srv.stop()
+        log("files", f"the artifact served {len(cfg.request_shapes)} "
+            f"requests {list(cfg.request_shapes)} over HTTP")
+    return {"census": census, "loader_img_per_s": loader,
+            "train": [first, second],
+            "launches": first["k2_launches"] + second["k2_launches"]}
 
 
 def phase_deploy(device: torch.device, trained: dict,
@@ -1053,17 +1469,6 @@ def phase_auto(device: torch.device, cfg: AutoSmokeConfig) -> dict:
             "tiled_ms": big_ms, "val_chosen": counts}
 
 
-def _nested(flat: dict) -> dict:
-    out: dict = {}
-    for key, v in flat.items():
-        *path, leaf = key.split("/")
-        d = out
-        for p in path:
-            d = d.setdefault(p, {})
-        d[leaf] = v
-    return out
-
-
 @dataclasses.dataclass(frozen=True)
 class ExportSmokeConfig:
     bundle: str = "docs/runs/flagship/artifact_int8.npz"
@@ -1086,7 +1491,7 @@ def phase_export(device: torch.device, cfg: ExportSmokeConfig) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "artifact")
         t0 = time.perf_counter()
-        save_artifact(art, "denoiser", conf, {"params": _nested(flat)})
+        save_artifact(art, "denoiser", conf, {"params": nest(flat)})
         save_s = time.perf_counter() - t0
         size_mb = os.path.getsize(os.path.join(art, "params.msgpack")) / 1e6
         srv = serve_artifact(art, port=0, device=device)
@@ -1433,6 +1838,8 @@ def main() -> None:
         f"{trained['step_ms']:.2f} ms step: "
         f"{degraded['device_ms'] / trained['step_ms']:.4%}")
     del trained
+    graphed = phase_graph(device, GraphSmokeConfig())
+    files = phase_files(device, FilesSmokeConfig())
     quality = phase_quality(device, QualitySmokeConfig())
     decided = phase_decision(device, DecisionSmokeConfig())
     phase_variants(device, DecisionSmokeConfig())
@@ -1444,7 +1851,8 @@ def main() -> None:
         {"serve": served["launches"], "deploy": deployed["launches"],
          "decision": decided["launches"], "auto": auto["launches"],
          "qat": qat["k1_launches"]},
-        {"train": trained_launches, "quality": quality["launches"],
+        {"train": trained_launches, "graph": graphed["launches"],
+         "files": files["launches"], "quality": quality["launches"],
          "qat": qat["k2_launches"]})), flush=True)
     log("done", f"{time.perf_counter() - t0:.1f} s on {info['smi']}; "
         f"deploy K1 launches {deployed['launches']}")

@@ -6,7 +6,8 @@ For the flagship int8 graph, unfused and with the fused SepConvBlocks,
 at each batch size: the host-clock ms per forward (ending in a
 synchronize), the device's busy ms (the sum of its kernels' times from
 torch.profiler; one stream, so they do not overlap) and idle share, the
-kernels launched per forward, and the kernels that take the most
+kernels run per forward and the host's launch calls (kernels and CUDA
+graphs), and the kernels that take the most
 device time. Prints one JSON line per (graph, batch). Inputs are made
 from a seed with numpy. Needs a CUDA card.
 """
@@ -44,16 +45,22 @@ def profile_forward(fn, x: torch.Tensor, n: int = 5,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     by_name: dict[str, float] = defaultdict(float)
-    launches = 0
+    launches = host = graphs = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
             launches += 1
+        elif e.name.startswith("cudaGraphLaunch"):
+            graphs += 1
+        elif e.name.startswith(("cudaLaunchKernel", "cudaLaunchCooperative")):
+            host += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
            "kernels_per_forward": launches / n,
+           # The host's launch calls: kernels one by one, and graphs.
+           "host_kernel_launches": host / n, "graph_launches": graphs / n,
            "top_kernels_ms": [[k[:90], round(v, 4)] for k, v in top]}
     if match is not None:
         out["matched_ms"] = sum(v for k, v in by_name.items() if match in k)

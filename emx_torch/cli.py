@@ -2,6 +2,10 @@
 flags and argument order, and one more flag, `--device=` (cuda by
 default; cpu runs a command on the CPU).
 
+  python -m emx_torch.cli harvest --src=<dm corpus> --out=<dir>
+  python -m emx_torch.cli train-denoiser --data_dir=<harvested TIFFs>
+      --model_dir=... [--steps_per_launch=8]
+  python -m emx_torch.cli bench-train [quick]
   python -m emx_torch.cli quality <out_dir> [s2d] [steps] [batch]
   python -m emx_torch.cli qat-finetune <artifact.npz> [out_dir] [steps]
       [psnr_gate] [--scope=head|refine|decoder|decoder2]
@@ -15,6 +19,8 @@ ROADMAP.md Queue 1 item that ports them.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
 import sys
 import time
 
@@ -33,6 +39,9 @@ class DenoiserCLIConfig(Config):
     scale: float = config_field(1.0, "model width multiplier")
     ckpt_every_steps: int = config_field(5000, "checkpoint cadence")
     seed: int = config_field(0, "seed")
+    steps_per_launch: int = config_field(
+        1, "train steps per launch (a CUDA graph of them on the card)")
+    device: str = config_field("cuda", "cuda, or cpu")
 
 
 @dataclasses.dataclass
@@ -66,6 +75,109 @@ def _device(argv: list[str]) -> str:
 
 def _positional(argv: list[str]) -> list[str]:
     return [x for x in argv if not x.startswith("-")]
+
+
+def _pipeline(data_dir: str, batch: int, crop: int, seed: int):
+    from emx_torch.data.pipeline import (DataPipeline, PipelineConfig,
+                                         synthetic_micrographs)
+
+    cfg = PipelineConfig(batch_size=batch, crop_size=crop, seed=seed)
+    if data_dir:
+        paths = sorted(glob.glob(f"{data_dir}/**/*.tif", recursive=True))
+        if not paths:
+            raise SystemExit(f"no .tif files under {data_dir}")
+        return DataPipeline(paths, cfg)
+    return DataPipeline(synthetic_micrographs(max(64, 4 * batch), crop), cfg)
+
+
+def train_denoiser(argv: list[str]) -> None:
+    """Train the default Denoiser (group norm, s2d 2, full width unless
+    --scale) on TIFF crops, resuming from model_dir/ckpt; write the
+    directory artifact model_dir/artifact, which serve_artifact serves.
+    Ends with one JSON line: the step, the last loss, the rate and the
+    degrade kernel's launches (captured and replayed under
+    --steps_per_launch > 1)."""
+    from emx_torch.data.degrade import denoiser_example
+    from emx_torch.nn import Denoiser, DenoiserConfig
+    from emx_torch.ops.degrade_kernel import fused_poisson_degrade
+    from emx_torch.serve.convert import to_flax_params
+    from emx_torch.serve.export import nest, save_artifact
+    from emx_torch.train import Checkpointer, TrainConfig, Trainer
+    from emx_torch.utils.device import resolve_device
+
+    c = DenoiserCLIConfig.from_args(argv)
+    device = resolve_device(c.device)
+    mcfg = DenoiserConfig().scaled(c.scale) if c.scale != 1.0 else \
+        DenoiserConfig()
+    trainer = Trainer(
+        Denoiser(mcfg, device=device),
+        TrainConfig(learning_rate=c.learning_rate, grad_accum=c.grad_accum,
+                    model_dir=c.model_dir,
+                    ckpt_every_steps=c.ckpt_every_steps, seed=c.seed,
+                    steps_per_launch=c.steps_per_launch),
+        example_fn=denoiser_example)
+    pipe = _pipeline(c.data_dir, c.batch_size, c.crop_size, c.seed)
+    state = trainer.init()
+    ckpt = Checkpointer(f"{c.model_dir}/ckpt")
+    try:
+        state, pipe_state = ckpt.restore(state)
+        if pipe_state:
+            pipe.load_state_dict(pipe_state)
+        print(f"resumed from step {state.step} at cursor "
+              f"{pipe.state_dict()}", flush=True)
+    except FileNotFoundError:
+        pass
+    start, launches = state.step, fused_poisson_degrade.launches
+    t0 = time.perf_counter()
+    state = trainer.fit(state, pipe, c.steps, checkpointer=ckpt)
+    loss = (float(trainer.last_metrics["loss"])
+            if trainer.last_metrics else None)
+    seconds = time.perf_counter() - t0
+    params, stats = to_flax_params(state.model)
+    variables = {"params": nest(params),
+                 **({"batch_stats": nest(stats)} if stats else {})}
+    save_artifact(f"{c.model_dir}/artifact", "denoiser",
+                  dataclasses.asdict(mcfg), variables)
+    print(f"trained to step {state.step}; artifact at "
+          f"{c.model_dir}/artifact", flush=True)
+    g = trainer.graph_stats
+    captured = g["captures"] * (trainer.graph.k2_per_replay
+                                if trainer.graph else 0)
+    print(json.dumps({
+        "step": state.step, "start": start, "loss": loss,
+        "fit_s": seconds, "img_per_s": (state.step - start) * c.batch_size
+        / seconds if state.step > start else None,
+        "cursor": pipe.state_dict(),
+        "k2_launches": fused_poisson_degrade.launches - launches
+        - captured + g["k2_replayed"],
+        "graph": g}), flush=True)
+
+
+def harvest(argv: list[str]) -> None:
+    @dataclasses.dataclass
+    class HarvestConfig(Config):
+        src: str = config_field("", "root of .dm3/.dm4 corpus")
+        out: str = config_field("harvested", "output dir")
+        shard_index: int = config_field(0, "this host's shard")
+        shard_count: int = config_field(1, "total shards")
+        size: int = config_field(2048, "output sidelength")
+        device: str = config_field("cuda", "cuda, or cpu")
+
+    from emx_torch.data.harvest import census, find_dm_files, reap
+
+    c = HarvestConfig.from_args(argv)
+    paths = find_dm_files(c.src)
+    print("census:", census(paths), flush=True)
+    m = reap(paths, c.out, c.shard_index, c.shard_count, c.size,
+             device=c.device)
+    print(f"reaped {len(m)} micrographs -> {c.out}", flush=True)
+
+
+def bench_train(argv: list[str]) -> None:
+    """Training-step throughput ladder (emx_torch.bench.train_bench)."""
+    from emx_torch.bench.train_bench import LADDER, QUICK, main as run
+
+    run(QUICK if "quick" in argv else LADDER, device=_device(argv))
 
 
 def serve(argv: list[str]) -> None:
@@ -133,11 +245,13 @@ def _unported(name: str, item: int):
 
 
 # ROADMAP.md Queue 1 item that ports each command not ported yet.
-_QUEUE_ITEM = {"train-denoiser": 1, "train-infilling": 4, "harvest": 1,
-               "ewrec": 4, "bench-train": 8, "gan-demo": 8,
+_QUEUE_ITEM = {"train-infilling": 4, "ewrec": 4, "gan-demo": 8,
                "gan-quality": 8, "zoo-ladder": 8, "dqn-autofocus": 8}
 COMMANDS = {
     **{name: _unported(name, item) for name, item in _QUEUE_ITEM.items()},
+    "train-denoiser": train_denoiser,
+    "harvest": harvest,
+    "bench-train": bench_train,
     "serve": serve,
     "quality": quality,
     "quant-check": quant_check,

@@ -13,7 +13,9 @@
 //
 // Uniforms take 23 bits of a Philox4x32-10 word, as _uniform_from_bits
 // does: [0, 1). The generator is written out below (no cuRAND): the key is
-// the wrapper's 64-bit seed, the counter (element, image); word 0 gives u,
+// the 64-bit seed that the wrapper puts in device memory (the kernel reads
+// it there, so that a CUDA graph of the train step can be replayed with a
+// new seed copied in), the counter (element, image); word 0 gives u,
 // word 1 gives u2.
 //
 // One deliberate divergence from the TPU kernel: its CDF loop starts at
@@ -153,8 +155,13 @@ __global__ void __launch_bounds__(THREADS, 4)
 degrade_kernel(const float* __restrict__ imgs, const float* __restrict__ scales,
                float* __restrict__ out, float* __restrict__ part,
                long long hw, int tiles, long long items, int ipb,
-               uint32_t key0, uint32_t key1) {
+               const unsigned long long* __restrict__ seed) {
   __shared__ float red[2 * WARPS];
+  // The Philox key is read from device memory, so a captured CUDA graph
+  // draws a new stream on each replay from what was copied there.
+  const unsigned long long key = *seed;
+  const uint32_t key0 = static_cast<uint32_t>(key);
+  const uint32_t key1 = static_cast<uint32_t>(key >> 32);
 
   // Phase 1: sample, write the counts, one (min, max) per item.
   for (int s = 0; s < ipb; ++s) {
@@ -233,16 +240,18 @@ extern "C" cudaError_t emx_degrade_occupancy(int* blocks) {
 }
 
 // imgs (B, H, W) f32, scales (B) f32, out (B, H, W) f32, part 2 x items
-// f32 scratch (items = B x ceil(hw / 4096)); all contiguous, on one device;
-// hw = H * W. ipb and grid are the wrapper's plan (degrade_plan). One
-// cooperative launch on `stream`; returns the first error,
+// f32 scratch (items = B x ceil(hw / 4096)); seed one u64 on the device,
+// the 64-bit Philox key; all contiguous, on one device; hw = H * W. ipb
+// and grid are the wrapper's plan (degrade_plan). One cooperative launch
+// on `stream` (CUDA 12 stream capture takes it into a graph as it is);
+// returns the first error,
 // cudaErrorCooperativeLaunchTooLarge if the grid cannot be co-resident.
 extern "C" cudaError_t emx_poisson_degrade(const void* imgs, const void* scales,
                                            void* out, void* part, int B,
-                                           long long hw,
-                                           unsigned long long seed, int ipb,
-                                           int grid, cudaStream_t stream) {
-  if (B <= 0 || hw <= 0 || ipb <= 0 || grid <= 0)
+                                           long long hw, const void* seed,
+                                           int ipb, int grid,
+                                           cudaStream_t stream) {
+  if (B <= 0 || hw <= 0 || ipb <= 0 || grid <= 0 || seed == nullptr)
     return cudaErrorInvalidValue;
   const long long tiles_ll = (hw + TILE - 1) / TILE;
   if (tiles_ll > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
@@ -262,12 +271,10 @@ extern "C" cudaError_t emx_poisson_degrade(const void* imgs, const void* scales,
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
   float* pt = static_cast<float*>(part);
-  uint32_t key0 = static_cast<uint32_t>(seed);
-  uint32_t key1 = static_cast<uint32_t>(seed >> 32);
-  void* args[] = {&im, &sc, &o, &pt, &hw, &tiles, &items, &ipb, &key0, &key1};
+  const unsigned long long* sd = static_cast<const unsigned long long*>(seed);
+  void* args[] = {&im, &sc, &o, &pt, &hw, &tiles, &items, &ipb, &sd};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(degrade_kernel),
-                                    dim3(grid), dim3(THREADS), args, 0,
-                                    stream);
+                                    dim3(grid), dim3(THREADS), args, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -1,6 +1,14 @@
-"""Device-resident training data (port of part of emx/data/pipeline.py).
+"""Training data (port of emx/data/pipeline.py).
 
   * `PipelineConfig`, as emx's;
+  * `DataPipeline`: TIFF files (read by the port's own TIFF decoder,
+    emx_torch.io.tiff) or an in-memory array, in emx's order: the same
+    `SeedSequence([seed, epoch])` permutation, the same `[seed, epoch,
+    pos, 17]` crop offsets, a thread pool for file sources, one gather
+    for packed arrays, and the (epoch, index) cursor committed on
+    consumption; it yields numpy batches, which the trainer uploads
+    (through pinned memory). emx's `as_global` (a multi-host
+    jax.Array) has no counterpart at world size 1 (ROADMAP.md);
   * `DeviceDataset`: the whole corpus lives on the device and batches are
     gathered there; the epoch order is a permutation from a generator
     seeded by (seed, epoch), and the (epoch, index) cursor is saved and
@@ -13,19 +21,20 @@
     render on `torch.fft` in complex64 on a device;
   * `mixed_micrographs`, the training mixes of those families ('mixed',
     'mixed3'): emx's composition, seed offsets and shuffle.
-
-`DataPipeline` (TIFF files through a thread pool) is not ported yet
-(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import queue
+import threading
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
+from emx_torch.io.tiff import read_tiff
 from emx_torch.physics.ctf import defocus_ctf, fftfreq
 from emx_torch.utils.config import Config, config_field
 from emx_torch.utils.device import resolve_device
@@ -40,6 +49,156 @@ class PipelineConfig(Config):
     num_workers: int = config_field(4, "file-read threads")
     prefetch: int = config_field(4, "prefetched batches")
     drop_remainder: bool = config_field(True, "drop last partial batch")
+
+
+class DataPipeline:
+    """Iterates (batch,) float32 arrays of shape (B, crop, crop).
+
+    Unlike emx's, it raises when batch_size exceeds the source, where
+    emx's iterator would loop over empty epochs for ever. `source` is either a list of file paths (read as float32 images and
+    random-cropped on host) or a numpy array (N, H, W) served from memory.
+    State is (epoch, index): save/restore via state_dict/load_state_dict.
+    """
+
+    def __init__(
+        self,
+        source: list[str] | np.ndarray,
+        config: PipelineConfig,
+        reader: Callable[[str], np.ndarray] | None = None,
+    ):
+        self.cfg = config
+        self.source = source
+        self.reader = reader or (
+            lambda p: read_tiff(p, fallback_shape=(config.crop_size, config.crop_size))
+        )
+        self.epoch = 0
+        self.index = 0
+        self._n = len(source)
+        if self._n == 0:
+            raise ValueError("empty data source")
+        if config.batch_size > self._n:
+            # emx's iterator would loop over empty epochs for ever.
+            raise ValueError(f"batch_size {config.batch_size} exceeds the "
+                             f"{self._n} images of the source")
+
+    # -- checkpointable state ------------------------------------------------
+    def state_dict(self) -> dict[str, int]:
+        return {"epoch": self.epoch, "index": self.index}
+
+    def load_state_dict(self, state: dict[str, int]) -> None:
+        self.epoch = int(state["epoch"])
+        self.index = int(state["index"])
+
+    # -- deterministic order -------------------------------------------------
+    def _order(self, epoch: int) -> np.ndarray:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.cfg.seed, epoch])
+        ).permutation(self._n)
+
+    def _load(self, item_idx: int, epoch: int, pos: int) -> np.ndarray:
+        if isinstance(self.source, np.ndarray):
+            img = self.source[item_idx]
+        else:
+            img = self.reader(self.source[item_idx])
+        c = self.cfg.crop_size
+        h, w = img.shape[-2:]
+        if (h, w) == (c, c):
+            return np.asarray(img, np.float32)
+        if h < c or w < c:
+            out = np.full((c, c), 0.5, np.float32)
+            out[: min(h, c), : min(w, c)] = img[: min(h, c), : min(w, c)]
+            return out
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.cfg.seed, epoch, pos, 17])
+        )
+        y = rng.integers(0, h - c + 1)
+        x = rng.integers(0, w - c + 1)
+        return np.asarray(img[y : y + c, x : x + c], np.float32)
+
+    # -- iteration -----------------------------------------------------------
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return self._prefetching_iter()
+
+    def _batches(self) -> Iterator[tuple[np.ndarray, int, int]]:
+        """Yield (batch, epoch, index) where (epoch, index) is the cursor
+        AFTER the batch: the state to resume from once the batch has been
+        consumed. The prefetch worker never touches self.epoch/index; the
+        consumer commits the cursor as batches are yielded, so a
+        checkpoint taken mid-stream never skips prefetched-but-unconsumed
+        batches on resume.
+
+        File sources fan the reads out over `num_workers` threads (file
+        IO and numpy's byte copies release the GIL). Array sources (incl.
+        np.load(mmap_mode='r') packed stacks, see pack_crops) stay
+        serial: they are memcpy-bound and threads only add overhead."""
+        b = self.cfg.batch_size
+        epoch, index = self.epoch, self.index
+        pool = None
+        if not isinstance(self.source, np.ndarray) and self.cfg.num_workers > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=self.cfg.num_workers)
+        c = self.cfg.crop_size
+        fast_array = (isinstance(self.source, np.ndarray)
+                      and self.source.shape[-2:] == (c, c))
+        try:
+            while True:
+                order = self._order(epoch)
+                while index + b <= self._n:
+                    idxs = order[index : index + b]
+                    if fast_array:
+                        # Packed stacks at native crop size: one C-level
+                        # fancy-index gather, dtype-preserving (integer
+                        # packs convert on the device in the train step).
+                        batch = self.source[idxs]
+                    else:
+                        args = [(int(i), epoch, index + j)
+                                for j, i in enumerate(idxs)]
+                        if pool is not None:
+                            imgs = list(pool.map(lambda a: self._load(*a),
+                                                 args))
+                        else:
+                            imgs = [self._load(*a) for a in args]
+                        batch = np.stack(imgs)
+                    index += b
+                    yield batch, epoch, index
+                epoch += 1
+                index = 0
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
+
+    def _prefetching_iter(self) -> Iterator[np.ndarray]:
+        q: queue.Queue = queue.Queue(maxsize=self.cfg.prefetch)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for item in self._batches():
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.25)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except Exception as e:  # surface loader errors on the main thread
+                q.put(e)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if isinstance(item, Exception):
+                    raise item
+                batch, epoch, index = item
+                # Commit the resumable cursor only on consumption.
+                self.epoch, self.index = epoch, index
+                yield batch
+        finally:
+            stop.set()
 
 
 class DeviceDataset:

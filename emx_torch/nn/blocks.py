@@ -15,6 +15,9 @@ pads (0, 1), a dilated 3x3 conv pads `rate` on each side.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -113,6 +116,11 @@ class GroupNorm(nn.Module):
         self.groups, self.dtype = groups, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] * x.shape[2] * (x.shape[3] // self.groups) == 1:
+            # One value per group: x - mean is 0, so flax returns the
+            # bias, where F.group_norm refuses a batch of one.
+            y = self.bias.float().expand(x.shape)
+            return y.to(self.dtype).contiguous()
         y = F.group_norm(x.float().permute(0, 3, 1, 2), self.groups,
                          self.weight.float(), self.bias.float(), eps=1e-6)
         return y.permute(0, 2, 3, 1).to(self.dtype).contiguous()
@@ -222,10 +230,47 @@ class SepConvBlock(nn.Module):
         return self.activation(self.Norm_0(self.Conv_1(self.Conv_0(x)), train))
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(n_in: int, n_out: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """(n_out, n_in): F.interpolate's bilinear weights along one axis
+    (align_corners False: source (o + 0.5) * n_in / n_out - 0.5, clamped
+    at 0; the upper neighbour clamped at n_in - 1)."""
+    a = np.zeros((n_out, n_in))
+    for o in range(n_out):
+        src = max((o + 0.5) * (n_in / n_out) - 0.5, 0.0)
+        i0 = min(int(src), n_in - 1)
+        lam = src - i0
+        a[o, i0] += 1.0 - lam
+        a[o, min(i0 + 1, n_in - 1)] += lam
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+class _Bilinear(torch.autograd.Function):
+    """F.interpolate(mode="bilinear", align_corners=False) on NCHW, whose
+    backward is two products with the interpolation matrices, in at
+    least float32: deterministic, where F.interpolate's CUDA backward
+    adds with atomics in a run-dependent order."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size: tuple[int, int]):
+        ctx.in_size = tuple(x.shape[-2:])
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        dt = torch.promote_types(g.dtype, torch.float32)
+        (h, w), (hh, ww) = ctx.in_size, g.shape[-2:]
+        ah = _interp_matrix(h, hh, dt, g.device)
+        aw = _interp_matrix(w, ww, dt, g.device)
+        t = torch.matmul(ah.t(), g.to(dt))           # (B, C, h, W)
+        return torch.matmul(t, aw).to(g.dtype), None  # (B, C, h, w)
+
+
 def _resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """jax.image.resize(..., "linear") for upsampling, on NHWC."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
-                      align_corners=False)
+    y = _Bilinear.apply(x.permute(0, 3, 1, 2), tuple(size))
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -55,6 +55,15 @@ class DenoiserConfig:
     folded_head_depth: int = 2
     out_dtype: str = "float32"
 
+    def scaled(self, scale: float) -> "DenoiserConfig":
+        """Every width times `scale`, at least 8 (emx's scaled)."""
+        return dataclasses.replace(
+            self,
+            features=tuple(max(8, int(f * scale)) for f in self.features),
+            aspp_filters=max(8, int(self.aspp_filters * scale)),
+            aspp_out=max(8, int(self.aspp_out * scale)),
+        )
+
     @classmethod
     def tiny(cls) -> "DenoiserConfig":
         return cls(features=(8, 12, 16, 24, 24), num_middle_blocks=1,
@@ -259,7 +268,10 @@ class Denoiser(_FlaxNamed):
         if not (self.config.remat_middle and train
                 and torch.is_grad_enabled()):
             return block(h, train)
+        # The model draws no random numbers, so the RNG state is not
+        # saved: reading it would not survive CUDA graph capture.
         return checkpoint(block, h, train, use_reentrant=False,
+                          preserve_rng_state=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               _frozen_stats(block)))
 

@@ -11,12 +11,14 @@ them to [0, 1] per image (a constant image maps to 0.5):
   * rate >= 10: max(round(rate + sqrt(rate) * z), 0), z by Box-Muller.
 
 The random bits come from Philox4x32-10 keyed by the 64-bit `seed`, with
-the counter (element, image). On a CUDA tensor the wrapper launches the
-hand-written kernel in `emx_torch/csrc/degrade.cu` or raises; on a CPU
-tensor it computes `poisson_degrade_reference`, the plain version, which
-draws the same Philox words and does the same arithmetic in the same
-order, so the two agree element for element up to the last bit of exp,
-log and cos.
+the counter (element, image). The kernel reads the seed from a device
+tensor (`seed_tensor`), so a CUDA graph that captures it draws anew on
+each replay from a seed copied in; an int seed is copied there first.
+On a CUDA tensor the wrapper launches the hand-written kernel in
+`emx_torch/csrc/degrade.cu` or raises; on a CPU tensor it computes
+`poisson_degrade_reference`, the plain version, which draws the same
+Philox words and does the same arithmetic in the same order, so the two
+agree element for element up to the last bit of exp, log and cos.
 
 The kernel is one cooperative launch; `degrade_plan` is its schedule,
 computed here from the shapes and the card's SM count and occupancy.
@@ -35,6 +37,7 @@ from emx_torch.utils.device import sm_count
 
 INV_TERMS = 32
 _MASK = 0xFFFFFFFF
+_MASK64 = (1 << 64) - 1
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57   # Philox multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 
@@ -153,10 +156,27 @@ def poisson_degrade_reference(seed: int, imgs: torch.Tensor,
 def _launcher():
     fn = _build.load("degrade").lib.emx_poisson_degrade
     fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong] + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def seed_tensor(seed: int, device: torch.device | str) -> torch.Tensor:
+    """A 64-bit seed as the one-element int64 tensor (its two's
+    complement bits) that the kernel reads its Philox key from."""
+    seed = _check_seed(seed)
+    return torch.tensor([seed - (1 << 64) if seed >> 63 else seed],
+                        dtype=torch.int64, device=device)
+
+
+def _seed_value(seed) -> int:
+    """The seed in [0, 2^64) of an int or a one-element int64 tensor."""
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError("a seed tensor holds one int64")
+        return int(seed.reshape(())) & _MASK64
+    return _check_seed(seed)
 
 
 @functools.cache
@@ -179,13 +199,17 @@ def card_plan(device_index: int, b: int, hw: int) -> DegradePlan:
                         _blocks_per_sm(device_index))
 
 
-def fused_poisson_degrade(seed: int, imgs: torch.Tensor,
+def fused_poisson_degrade(seed, imgs: torch.Tensor,
                           scales: torch.Tensor) -> torch.Tensor:
     """Degrade a (B, H, W) float32 batch with per-image dose `scales` (B,)
     float32; returns the low-dose images rescaled to [0, 1]. `seed` is an
-    integer in [0, 2^64). `fused_poisson_degrade.launches` counts kernel
-    launches."""
-    seed = _check_seed(seed)
+    integer in [0, 2^64), or a one-element int64 tensor on the batch's
+    device holding its bits (`seed_tensor`), which the kernel reads
+    there: under CUDA graph capture it must be a tensor, so that each
+    replay draws from what was copied into it. An int seed is copied to
+    the card first; both take the same entry point and draw the same
+    words. `fused_poisson_degrade.launches` counts kernel launches (under
+    capture, one per captured launch, not per replay)."""
     if imgs.dim() != 3:
         raise ValueError(f"imgs must be (B, H, W), got {tuple(imgs.shape)}")
     b, h, w = imgs.shape
@@ -200,11 +224,21 @@ def fused_poisson_degrade(seed: int, imgs: torch.Tensor,
     if not (imgs.is_contiguous() and scales.is_contiguous()):
         raise ValueError("fused_poisson_degrade takes contiguous tensors")
     if imgs.device.type == "cpu":
-        return poisson_degrade_reference(seed, imgs, scales)
+        return poisson_degrade_reference(_seed_value(seed), imgs, scales)
     if imgs.device.type != "cuda":
         raise ValueError(f"no degrade kernel for device {imgs.device}")
     if b * h * w == 0:
         raise ValueError(f"empty input {tuple(imgs.shape)}")
+    if torch.is_tensor(seed):
+        if (seed.device != imgs.device or seed.dtype != torch.int64
+                or seed.numel() != 1):
+            raise ValueError("a seed tensor holds one int64 on the batch's "
+                             "device")
+    elif torch.cuda.is_current_stream_capturing():
+        raise ValueError("under CUDA graph capture the seed must be a "
+                         "device tensor (seed_tensor)")
+    else:
+        seed = seed_tensor(seed, imgs.device)
     dev = imgs.device.index if imgs.device.index is not None else \
         torch.cuda.current_device()
     plan = card_plan(dev, b, h * w)
@@ -214,7 +248,7 @@ def fused_poisson_degrade(seed: int, imgs: torch.Tensor,
     with torch.cuda.device(dev):
         err = _launcher()(
             imgs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            part.data_ptr(), b, h * w, seed, plan.ipb, plan.grid,
+            part.data_ptr(), b, h * w, seed.data_ptr(), plan.ipb, plan.grid,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"degrade kernel launch failed: CUDA error {err}")

@@ -107,6 +107,19 @@ def _sorted_tree(tree):
     return tree
 
 
+def nest(flat: dict) -> dict:
+    """{"a/b/c": v} -> {"a": {"b": {"c": v}}}: flat flax dicts (as
+    to_flax_params and read_artifact give them) as an artifact's trees."""
+    out: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
 def save_artifact(path: str, model_name: str, config: dict,
                   variables: Any) -> None:
     """Write `variables` (nested dicts of tensors or arrays, e.g.

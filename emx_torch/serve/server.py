@@ -308,6 +308,21 @@ def serve_artifact(artifact_path: str, tile: int = 512, overlap: int = 80,
     if not (artifact_path.endswith(".npz") or os.path.isfile(artifact_path)):
         art = load_artifact(artifact_path)
         model_fn = art.apply_fn(device)
+        if art.model_name == "denoiser":
+            # emx's directory branch runs every request natively, so a
+            # side that is no multiple of the net's stride fails there
+            # (ROADMAP.md Queue 3); the port tiles such a request.
+            grid = 16 * int(art.config.get("space_to_depth", 1))
+
+            def any_size(img: np.ndarray) -> torch.Tensor:
+                x = torch.from_numpy(img).to(device)
+                if img.shape[0] % grid == 0 and img.shape[1] % grid == 0:
+                    return model_fn(x[None])[0]
+                return tiled_apply(model_fn, x, tile=tile, overlap=overlap,
+                                   batch=8)
+
+            kw.setdefault("oversize_fn", any_size)
+            kw.setdefault("tile_size", tile)
         srv = InferenceServer(
             lambda batch: model_fn(torch.from_numpy(batch)),
             model_info={"model": art.model_name, "device": str(device)},

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -37,13 +39,20 @@ _D4 = ((0, 0, 0), (1, 1, 0), (0, 1, 1), (1, 0, 1),
        (0, 1, 0), (0, 0, 1), (1, 0, 0), (1, 1, 1))
 
 
+@functools.cache
+def _d4_table(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_D4, dtype=torch.bool, device=device)
+
+
 def flip_rotate(imgs: torch.Tensor, choices: torch.Tensor) -> torch.Tensor:
     """Apply to each square image of a (B, H, H) batch the D4 transform
     `choices[b]` in [0, 8), as emx's flip_rotate does to one image.
-    No host synchronisation: every image goes through three selects."""
+    No host synchronisation, and no copy from the host after the first
+    call on a device (a CUDA graph can capture it): every image goes
+    through three selects."""
     if imgs.dim() != 3 or imgs.shape[-1] != imgs.shape[-2]:
         raise ValueError(f"flip_rotate takes (B, H, H), got {tuple(imgs.shape)}")
-    table = torch.tensor(_D4, dtype=torch.bool, device=imgs.device)
+    table = _d4_table(imgs.device)
     flags = table[choices.to(imgs.device).long()][:, :, None, None]
     out = torch.where(flags[:, 0], imgs.transpose(-1, -2), imgs)
     out = torch.where(flags[:, 1], out.flip(-2), out)

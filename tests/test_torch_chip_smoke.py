@@ -434,9 +434,60 @@ def test_qat_phase_holds_the_bundle_record(tiny_qat_bundle, on_tiny_ladders,
 
 
 def test_kernels_line_counts_k2_phases():
+    phases = {"train": 30, "graph": 75, "files": 24, "quality": 24,
+              "qat": 311}
     line = chip_smoke.kernels_line(
         [{"max_abs_err": 0.0}], 7, {"max_abs_err": 0.0}, 30, {"serve": 7},
-        {"train": 30, "quality": 24, "qat": 311})
+        phases)
     k1, k2 = line["kernels"]
-    assert k2["phase_launches"] == {"train": 30, "quality": 24, "qat": 311}
+    assert k2["phase_launches"] == phases
     assert k2["launches"] == 30 and k1["phase_launches"] == {"serve": 7}
+
+
+GRAPH_TINY = dict(n_images=8, size=32, batch=2, k=2, pre_steps=1)
+
+
+def test_graph_phase_needs_the_card():
+    """The graph phase runs its eager steps on the CPU, then refuses: a
+    CUDA graph needs the card."""
+    cfg = chip_smoke.GraphSmokeConfig(
+        model=dataclasses.replace(DenoiserConfig.tiny(), norm="batch"),
+        **GRAPH_TINY)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        chip_smoke.phase_graph(CPU, cfg)
+
+
+FILES_TINY = dict(n_micrographs=3, size=512, odd_shape=(600, 560),
+                  harvest_size=64, batch=2, crop=32, steps=4, resume_steps=6,
+                  steps_per_launch=1, ckpt_every=2, scale=0.02,
+                  request_shapes=((32, 32), (600, 530)), loader_batches=2)
+
+
+def test_files_phase(capsys):
+    """The files phase on the CPU at a tiny width and 64x64 harvest:
+    harvest's census (7 files, 3 rejected), train-denoiser 4 steps and a
+    resume to 6 through the CLI in subprocesses, the artifact served at
+    a native and a tiled shape."""
+    res = chip_smoke.phase_files(CPU, chip_smoke.FilesSmokeConfig(
+        **FILES_TINY))
+    assert res["census"] == {"total": 7, "decode_failed": 1,
+                             "not_imaging": 1, "too_small": 1,
+                             "too_dim": 0, "usable": 4}
+    first, second = res["train"]
+    assert (first["step"], second["start"], second["step"]) == (4, 4, 6)
+    assert res["launches"] == 0          # no kernel runs on the CPU
+    assert "served 2 requests" in capsys.readouterr().out
+
+
+def test_files_phase_checks_the_resume(monkeypatch):
+    """A resume that does not come back at the saved step fails."""
+    real = chip_smoke._cli
+
+    def no_resume(*argv):
+        out = real(*argv)
+        return [ln for ln in out if not ln.startswith("resumed")] or out
+
+    monkeypatch.setattr(chip_smoke, "_cli", no_resume)
+    with pytest.raises(AssertionError, match="resumed"):
+        chip_smoke.phase_files(CPU, chip_smoke.FilesSmokeConfig(
+            **FILES_TINY))

@@ -343,3 +343,145 @@ def test_tail_distill_step_on_the_card(cuda):
                    zip(before, tail.parameters()))
     assert np.isfinite(losses).all()
     assert abs(losses[1] - losses[0]) <= 2e-2 * abs(losses[0])
+
+
+# -- steps_per_launch: CUDA graphs of the train step ----------------------
+
+GRAPH_CFG = dict(norm="batch", dtype=torch.bfloat16, space_to_depth=4,
+                 folded_head=16, remat_middle=True)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield cuda
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+
+
+def _graph_setup(cuda, tmp_path, name, **kw):
+    from emx_torch.data import DeviceDataset, PipelineConfig
+
+    model = Denoiser(dataclasses.replace(DenoiserConfig.tiny(), **GRAPH_CFG),
+                     device=cuda)
+    cfg = TrainConfig(log_every=1, seed=4, model_dir=str(tmp_path / name),
+                      **kw)
+    trainer = Trainer(model, cfg, example_fn=denoiser_example)
+    data = DeviceDataset(synthetic_micrographs(8, 64, seed=2),
+                         PipelineConfig(batch_size=2, crop_size=64, seed=1),
+                         device=cuda)
+    return trainer, trainer.init(), data
+
+
+def _params(state):
+    return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["nesterov", "adam"])
+def test_graph_equals_eager_on_the_card(deterministic, tmp_path, optimizer):
+    """6 steps eagerly and as 3 replays of a graph of 2 steps (K2 inside
+    it), from the same initialisation: the same parameters, BatchNorm
+    statistics and logged losses, bit for bit under cudnn.deterministic
+    (the bilinear upsample's backward is a product, not atomics)."""
+    cuda = deterministic
+    eager, es, ed = _graph_setup(cuda, tmp_path, "e", optimizer=optimizer)
+    eager.fit(es, ed, 6)
+    graphed, gs, gd = _graph_setup(cuda, tmp_path, "g", optimizer=optimizer,
+                                   steps_per_launch=2)
+    launches = fused_poisson_degrade.launches
+    graphed.fit(gs, gd, 6)
+    torch.cuda.synchronize()
+    assert graphed.graph_stats["replays"] == 3
+    assert graphed.graph_stats["captures"] == 1
+    assert graphed.graph.k2_per_replay == 2
+    # Two warm-up steps and the two captured launches.
+    assert fused_poisson_degrade.launches == launches + 4
+    a, b = _params(es), _params(gs)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    import json
+
+    def losses(tr):
+        with open(tmp_path / tr / "metrics.jsonl") as f:
+            return {ln["step"]: ln["loss"] for ln in map(json.loads, f)}
+
+    eager_losses, graph_losses = losses("e"), losses("g")
+    assert sorted(graph_losses) == [2, 4, 6]
+    assert all(graph_losses[s] == eager_losses[s] for s in graph_losses)
+
+
+@pytest.mark.gpu
+def test_degrade_kernel_under_capture(cuda):
+    """K2 captured with its seed in a device tensor: each replay, with a
+    new seed copied in, equals the plain version on every element; an int
+    seed under capture is refused."""
+    gen = torch.Generator().manual_seed(5)
+    imgs = torch.rand((3, 96, 80), generator=gen).to(cuda)
+    scales = torch.tensor([4.0, 30.0, 300.0], device=cuda)
+    key = degrade_kernel.seed_tensor(1, cuda)
+    fused_poisson_degrade(key, imgs, scales)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_poisson_degrade(key, imgs, scales)
+    for seed in (1, 2 ** 63 + 5, 2 ** 64 - 1):
+        key.copy_(degrade_kernel.seed_tensor(seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, poisson_degrade_reference(seed, imgs, scales))
+        assert torch.equal(out, fused_poisson_degrade(seed, imgs, scales))
+    with pytest.raises(ValueError, match="device tensor"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            fused_poisson_degrade(3, imgs, scales)
+
+
+@pytest.mark.gpu
+def test_lr_hot_reload_inside_a_graph(cuda, tmp_path):
+    """learning_rate.txt between launches: Adam's learning rate is a
+    device tensor the graph reads, filled in place (no recapture), and at
+    0 the parameters stop moving; SGD's is a host number, so a new rate
+    recaptures."""
+    import os
+
+    for optimizer, captures in (("adam", 1), ("nesterov", 2)):
+        tr, state, data = _graph_setup(cuda, tmp_path, optimizer,
+                                       optimizer=optimizer,
+                                       steps_per_launch=2)
+        tr.fit(state, data, 2)
+        with open(os.path.join(tr.cfg.model_dir, "learning_rate.txt"),
+                  "w") as f:
+            f.write("0.0\n")
+        tr.fit(state, data, 4)      # the rate is read after this launch
+        before = _params(state)
+        tr.fit(state, data, 6)
+        after = _params(state)
+        assert tr.graph_stats["captures"] == captures, optimizer
+        assert all(torch.equal(before[k], after[k]) for k in before
+                   if not k.endswith(("mean", "var"))), optimizer
+
+
+@pytest.mark.gpu
+def test_resume_under_a_graph(deterministic, tmp_path):
+    """Launches of 2 with checkpoints every 2: a run restored from step 4
+    into a trainer whose graph was captured on other tensors recaptures,
+    and ends where an uninterrupted run to 8 ends."""
+    from emx_torch.train import Checkpointer
+
+    cuda = deterministic
+    whole, ws, wd = _graph_setup(cuda, tmp_path, "whole", steps_per_launch=2)
+    whole.fit(ws, wd, 8)
+    first, fs, fd = _graph_setup(cuda, tmp_path, "first", steps_per_launch=2,
+                                 ckpt_every_steps=2)
+    ckpt = Checkpointer(str(tmp_path / "ckpt"))
+    first.fit(fs, fd, 4, checkpointer=ckpt)
+    again, gs, gd = _graph_setup(cuda, tmp_path, "again", steps_per_launch=2)
+    again.fit(gs, gd, 2)
+    gs, cursor = ckpt.restore(gs)
+    gd.load_state_dict(cursor)
+    again.fit(gs, gd, 8)
+    assert again.graph_stats["captures"] == 2
+    a, b = _params(ws), _params(gs)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

@@ -153,25 +153,35 @@ def test_init_covers_every_head_parameter(kw):
 
 
 def test_one_value_groups_raise_where_flax_returns_the_bias():
-    """A fault of the port's GroupNorm (ROADMAP Queue 3): flax normalises
-    a group that holds one value to 0 (its variance is 0) and returns
-    the bias; `F.group_norm` refuses a batch of one whose groups each
-    hold one value, as an instance norm at a 1x1 map gives it. A batch
-    of two is served."""
+    """Repaired in the port (ROADMAP Queue 3): flax normalises a group
+    that holds one value to 0 (its variance is 0) and returns the bias;
+    `F.group_norm` refused a batch of one whose groups each hold one
+    value, as an instance norm at a 1x1 map gives it. The port now
+    returns flax's value at batch 1 and batch 2 (tolerance 1e-6), and a
+    group of more than one value still goes through `F.group_norm`."""
     import flax.linen as fnn
     from emx_torch.nn.blocks import GroupNorm
 
-    x = np.random.default_rng(0).random((1, 1, 1, 8)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    scale = rng.random(8).astype(np.float32) + 0.5
+    bias = rng.standard_normal(8).astype(np.float32)
     gn = fnn.GroupNorm(num_groups=None, group_size=1)
-    variables = gn.init(jax.random.key(0), jnp.asarray(x))
-    np.testing.assert_allclose(np.asarray(gn.apply(variables,
-                                                   jnp.asarray(x))),
-                               0.0, atol=1e-6)
+    variables = {"params": {"scale": jnp.asarray(scale),
+                            "bias": jnp.asarray(bias)}}
     port = GroupNorm(8, 8, torch.float32)
-    with pytest.raises(ValueError, match="more than 1 value"):
-        port(torch.from_numpy(x))
-    two = port(torch.from_numpy(np.repeat(x, 2, axis=0)))
-    assert two.shape == (2, 1, 1, 8)
+    with torch.no_grad():
+        port.weight.copy_(torch.from_numpy(scale))
+        port.bias.copy_(torch.from_numpy(bias))
+    for shape in ((1, 1, 1, 8), (2, 1, 1, 8), (1, 2, 2, 8)):
+        x = rng.random(shape).astype(np.float32)
+        want = np.asarray(gn.apply(variables, jnp.asarray(x)))
+        got = port(torch.from_numpy(x)).detach().numpy()
+        assert got.shape == shape
+        np.testing.assert_allclose(got, want, atol=1e-5 if shape[1] > 1
+                                   else 1e-6)
+    np.testing.assert_allclose(
+        port(torch.ones(1, 1, 1, 8)).detach().numpy()[0, 0, 0], bias,
+        atol=0)
 
 
 def test_head_rejects_unknown_norm():

@@ -550,9 +550,14 @@ def test_fresh_calibration_of_the_flagship_against_emx(capsys):
     ("InfillingCLIConfig", ["--coverage=16", "--steps=10"]),
 ])
 def test_cli_configs_parse_like_emx(cls, argv):
-    ref = getattr(emx_cli, cls).from_args(argv)
-    got = getattr(cli, cls).from_args(argv)
-    assert got.to_dict() == ref.to_dict()
+    """emx's flags parse to emx's values; the port adds `device` and
+    (train-denoiser) `steps_per_launch`, at cuda and 1."""
+    ref = getattr(emx_cli, cls).from_args(argv).to_dict()
+    got = getattr(cli, cls).from_args(argv).to_dict()
+    assert {k: got[k] for k in ref} == ref
+    assert {k: got[k] for k in set(got) - set(ref)} == (
+        {"device": "cuda", "steps_per_launch": 1}
+        if cls == "DenoiserCLIConfig" else {})
 
 
 def test_cli_serve_flags():
@@ -597,7 +602,8 @@ def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
 
 @pytest.mark.parametrize("command", sorted(
     set(emx_cli.COMMANDS) - {"serve", "quality", "quant-check",
-                             "qat-finetune"}))
+                             "qat-finetune", "train-denoiser", "harvest",
+                             "bench-train"}))
 def test_cli_unported_commands_raise(command):
     assert set(cli.COMMANDS) == set(emx_cli.COMMANDS)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):

@@ -36,6 +36,8 @@ from emx_torch.nn.init import init_parameters
 from emx_torch.serve.convert import load_flax_params, to_flax_params
 from emx_torch.train import (Checkpointer, TrainConfig, Trainer, TrainState,
                              make_optimizer)
+from emx_torch.train import engine
+from emx_torch.utils.rng import fold_in
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -297,14 +299,54 @@ def test_optimizer_variants_match_emx(variant):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_unported_options_raise():
-    model = _Linear(16)
-    for kw in (dict(steps_per_launch=2), dict(profile_dir="p"),
-               dict(sample_every=5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model, TrainConfig(**kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, TrainConfig(), probe=object())
+def test_unported_options_raise(tmp_path):
+    """emx's four options that raised in the port before run now:
+    profile_dir writes a Chrome trace of the chosen steps, sample_every
+    writes emx's input/truth/output TIFFs, a DoseProbe trains and its
+    eval hook updates the CDF, and steps_per_launch > 1 builds a CUDA
+    graph (on the CPU it says that it needs the card). The probe refuses
+    steps_per_launch > 1, as emx's does."""
+    from emx_torch.io.tiff import read_tiff
+    from emx_torch.train.dose_probe import DoseProbe
+
+    tr, state, data = _tiny_fit_setup(
+        tmp_path, "opts", profile_dir=str(tmp_path / "trace"),
+        profile_start_step=1, profile_num_steps=2, sample_every=2)
+    tr.fit(state, data, 4)
+    traces = os.listdir(tmp_path / "trace")
+    assert traces == ["trace_step1.json"]
+    with open(tmp_path / "trace" / traces[0]) as f:
+        assert json.load(f)["traceEvents"]
+    samples = sorted(os.listdir(os.path.join(tr.cfg.model_dir, "samples")))
+    assert samples == sorted(f"{s}_{n}.tif" for s in (2, 4)
+                             for n in ("input", "truth", "output"))
+    img = read_tiff(os.path.join(tr.cfg.model_dir, "samples",
+                                 "4_output.tif"))
+    assert img.shape == (32, 32) and 0 <= img.min() <= img.max() <= 1
+
+    probe = DoseProbe(num_bins=4)
+    model = Denoiser(dataclasses.replace(DenoiserConfig.tiny(), **BN_KW),
+                     device=CPU)
+    ptr = Trainer(model, TrainConfig(log_every=1, seed=2,
+                                     model_dir=str(tmp_path / "probe")),
+                  example_fn=probe.example_fn, probe=probe)
+    pstate = ptr.init()
+    val = synthetic_micrographs(2, 32, seed=7)
+    ptr.fit(pstate, data, 4, eval_fn=probe.make_eval_hook(ptr, val),
+            eval_every=2)
+    assert probe.prev_losses is not None and len(probe.prev_losses) == 4
+    assert probe.cum_probs[-1] == pytest.approx(1.0)
+
+    gtr = Trainer(_Linear(16), TrainConfig(steps_per_launch=2),
+                  example_fn=denoiser_example)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        gtr.fit(_fresh_state(gtr.model, gtr), data, 2)
+    with pytest.raises(ValueError, match="steps_per_launch"):
+        Trainer(model, TrainConfig(steps_per_launch=2), probe=probe,
+                example_fn=probe.example_fn)
+    with pytest.raises(ValueError, match="two halves"):
+        Trainer(model, TrainConfig(steps_per_launch=2),
+                example_fn=lambda seed, x: (x, x))
     with pytest.raises(ValueError, match="optimizer"):
         make_optimizer(TrainConfig(optimizer="lamb"), model.parameters())
 
@@ -423,3 +465,137 @@ def test_device_dataset_batches_and_resume():
 def test_synthetic_micrographs_bit_identical():
     np.testing.assert_array_equal(synthetic_micrographs(3, 48, seed=9),
                                   flax_synthetic(3, 48, seed=9))
+
+
+# -- steps_per_launch: the graph's control flow on the CPU ---------------
+
+class _EagerGraph:
+    """StepGraph's interface without a card: each replay runs its K steps
+    eagerly from the batches and draws staged for it, as the captured
+    graph does from its pinned buffers."""
+
+    state_key = staticmethod(engine.StepGraph.state_key)
+    seeds: list = []
+
+    def __init__(self, trainer, state, batches, seeds):
+        self.trainer, self.state = trainer, state
+        self.k2_per_replay, self.capture_s = len(batches), 0.0
+        self.key = self.state_key(state)
+        _EagerGraph.seeds += seeds
+        self.stage(batches, [trainer.example_fn.draws(
+            s, batches[0].shape[0], "cpu") for s in seeds])
+
+    def stage(self, batches, draws):
+        self.batches, self.draws = [torch.as_tensor(b) for b in batches], draws
+
+    def replay(self):
+        rows = []
+        for b, d in zip(self.batches, self.draws):
+            x, t = self.trainer.example_fn.apply(d, b.float())
+            m = self.trainer._update(self.state, x, t)
+            rows.append(torch.stack([m[k] for k in engine.METRICS]))
+        self.metrics = torch.stack(rows)
+
+
+@pytest.fixture
+def eager_graph(monkeypatch):
+    monkeypatch.setattr(engine, "StepGraph", _EagerGraph)
+    _EagerGraph.seeds = []
+    return _EagerGraph
+
+
+def test_steps_per_launch_draws_what_eager_draws(tmp_path, eager_graph):
+    """The per-step seeds of a steps_per_launch run are the eager run's
+    (fold_in(seed, 1, step)), and K steps a launch give the eager run's
+    parameters and BatchNorm statistics, bit for bit on the CPU."""
+    seen = []
+    tr, state, data = _tiny_fit_setup(tmp_path, "eager")
+    orig = tr.step_seed
+    tr.step_seed = lambda step: seen.append(orig(step)) or orig(step)
+    tr.fit(state, data, 6)
+    gtr, gstate, gdata = _tiny_fit_setup(tmp_path, "graph",
+                                         steps_per_launch=3)
+    gtr.fit(gstate, gdata, 6)
+    assert eager_graph.seeds == seen == [fold_in(3, 1, s) for s in range(6)]
+    for (k, a), (_, b) in zip(state.model.state_dict().items(),
+                              gstate.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    assert gtr.graph_stats["replays"] == 2
+    assert gtr.graph_stats["k2_replayed"] == 6
+    with open(os.path.join(gtr.cfg.model_dir, "metrics.jsonl")) as f:
+        assert [json.loads(ln)["step"] for ln in f] == [3, 6]
+
+
+def test_fit_overshoots_num_steps_as_emx_does(tmp_path, eager_graph):
+    """7 steps in launches of 3 run 9, in emx and in the port."""
+    from emx.data.degrade import denoiser_example as flax_example
+
+    data = flax_synthetic(16, 16, seed=5)
+    model = _FlaxLinear()
+    tr = FlaxTrainer(model, FlaxTrainConfig(log_every=0, seed=1,
+                                            steps_per_launch=3),
+                     example_fn=flax_example)
+    variables = jax.tree_util.tree_map(
+        np.asarray, model.init(jax.random.key(1), jnp.asarray(data[:8])))
+    state = tr.fit(_flax_state(tr, variables),
+                   _Batches(data[:8]), 7)
+    assert int(state.step) == 9
+    gtr, gstate, gdata = _tiny_fit_setup(tmp_path, "over",
+                                         steps_per_launch=3)
+    gtr.fit(gstate, gdata, 7)
+    assert gstate.step == 9
+
+
+class _Batches:
+    """An endless pipeline of one batch."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def __iter__(self):
+        while True:
+            yield self.batch
+
+    def state_dict(self):
+        return {}
+
+
+def test_probe_refuses_steps_per_launch_as_emx_does():
+    from emx.train.dose_probe import DoseProbe as FlaxProbe
+    from emx_torch.train.dose_probe import DoseProbe
+
+    with pytest.raises(ValueError, match="steps_per_launch"):
+        FlaxTrainer(_FlaxLinear(), FlaxTrainConfig(steps_per_launch=2),
+                    example_fn=FlaxProbe(4).example_fn, probe=FlaxProbe(4))
+    with pytest.raises(ValueError, match="steps_per_launch"):
+        Trainer(_Linear(16), TrainConfig(steps_per_launch=2),
+                example_fn=DoseProbe(4).example_fn, probe=DoseProbe(4))
+
+
+def test_graph_run_resumes_the_same_cursor(tmp_path, eager_graph):
+    """Launches of 2 steps, checkpoints every 2: a run restored from
+    step 4 ends where an uninterrupted run to 8 ends, its cursor
+    included, and the restore recaptures (the optimizer's tensors were
+    replaced)."""
+    tr, state, data = _tiny_fit_setup(tmp_path, "whole", steps_per_launch=2)
+    tr.fit(state, data, 8)
+    tr2, state2, data2 = _tiny_fit_setup(tmp_path, "first",
+                                         steps_per_launch=2,
+                                         ckpt_every_steps=2)
+    ckpt = Checkpointer(str(tmp_path / "ckpt"))
+    tr2.fit(state2, data2, 4, checkpointer=ckpt)
+    assert ckpt.all_steps() == [2, 4]
+    tr3, state3, data3 = _tiny_fit_setup(tmp_path, "resumed",
+                                         steps_per_launch=2)
+    tr3.fit(state3, data3, 2)        # a graph of the fresh state
+    assert tr3.graph_stats["captures"] == 1
+    state3, cursor = ckpt.restore(state3)
+    assert state3.step == 4 and cursor == data2.state_dict() == {
+        "epoch": 1, "index": 2}
+    data3.load_state_dict(cursor)
+    tr3.fit(state3, data3, 8)
+    assert tr3.graph_stats["captures"] == 2
+    assert data3.state_dict() == data.state_dict()
+    for (k, a), (_, b) in zip(state.model.state_dict().items(),
+                              state3.model.state_dict().items()):
+        assert torch.equal(a, b), k
