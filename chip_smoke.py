@@ -120,8 +120,38 @@ non-zero and prints no result):
              Then 10 steps of qat_finetune.main(target="float") at full
              width: fake-quant against int8 above 35 dB before the first
              step, finite losses.
- 16. the kernels line (JSON), then the last line
+ 16. gan     `python -m emx_torch.cli train-infilling` at the reference's
+             full width (InfillingConfig(), float32), batch 4 of 512x512
+             synthetic crops, 12 steps with a checkpoint every 4, then
+             resumed to 16: per-step d_fake, d_real and trainee, ms a
+             step, img/s, peak memory. Gates: every loss finite, both
+             nets' parameters changed, the resumed state's digest equal to
+             the saved one's.
+ 17. gan_quality  emx_torch.bench.gan_quality.main on the committed state
+             docs/runs/gan_quality_300k/gan_state.npz (its sha256 printed;
+             missing: the phase fails), eval only (steps = its step
+             125000; scale 0.5, 256x256, coverage 1/64), with the val
+             images' fingerprint. Gates: the NN row within +-0.10 dB of
+             its quality.json (25.784), each classical row and identity
+             within +-0.02 dB. Then 20 training steps from that warm
+             start, steps/s.
+ 18. gan_demo emx_torch.bench.gan_demo.main cut to 200 steps (a
+             checkpoint at 100 before the simulated collapse) and its
+             150-step starvation segment. Gates: a rollback, a forced
+             switch, both nets trained.
+ 19. ewrec   ewrec_bench.measure(15, 512, 50): GS iterations/s of the
+             Fourier-averaged and naive loops and the FFT-only ceiling;
+             accuracy_vs_dose(15, 256, 50) and ewrec_diagnosis.main(256,
+             15): every accuracy row, gs_corr_vs_iters and
+             weak_phase_corr within +-0.001 of docs/runs/ewrec_r4_
+             accuracy.json and ewrec_r5_diagnosis.json; then `python -m
+             emx_torch.cli ewrec` on a focal series of five 128x128 TIFFs
+             (known wave, defocus step 300, subpixel shifts): complex
+             |corr| above 0.95 and the defocus step within 10%.
+ 20. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+     No GAN or EWREC function reaches K1 or K2: emx computes them with
+     XLA convolutions and jnp.fft, the port with cuDNN and cuFFT.
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
 model from a seed. The phases are functions of (device, config), so the
@@ -1058,7 +1088,7 @@ def write_dm_corpus(root: str, cfg: FilesSmokeConfig) -> dict:
             "too_small": 1, "too_dim": 0, "usable": usable}
 
 
-def _cli(*argv: str) -> list[str]:
+def _cli(*argv: str, phase: str = "files") -> list[str]:
     """Run `python -m emx_torch.cli` in a subprocess; its stdout lines.
     It fails the phase if the command fails."""
     import subprocess
@@ -1070,7 +1100,7 @@ def _cli(*argv: str) -> list[str]:
     if proc.returncode:
         raise AssertionError(f"emx_torch.cli {argv[0]} exited "
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-    log("files", f"emx_torch.cli {argv[0]} done in "
+    log(phase, f"emx_torch.cli {argv[0]} done in "
         f"{time.perf_counter() - t0:.1f} s")
     return proc.stdout.splitlines()
 
@@ -1775,6 +1805,361 @@ def phase_qat(device: torch.device, cfg: QatSmokeConfig) -> dict:
             "recipe_psnr": recipe_psnr, "seconds": distill_s + float_s}
 
 
+# ---------------------------------------------------------------------------
+# The infilling GAN and exit-wave reconstruction.
+
+@dataclasses.dataclass(frozen=True)
+class GanSmokeConfig:
+    # `train-infilling` at the reference's full width (InfillingConfig(),
+    # float32), batch 4 of 512x512 crops, cut to 12 steps of 700000, then
+    # resumed from the step-12 checkpoint to 16.
+    steps: int = 12
+    resume_steps: int = 16
+    batch: int = 4
+    crop: int = 512
+    ckpt_every: int = 4
+    scale: float = 1.0
+
+
+def phase_gan(device: torch.device, cfg: GanSmokeConfig) -> dict:
+    """train-infilling twice through the CLI (the second call resumes);
+    gated on finite losses, both nets changed, and the resumed state's
+    digest equal to the saved one's."""
+    failures = []
+    common = (f"--batch_size={cfg.batch}", f"--crop_size={cfg.crop}",
+              f"--ckpt_every_steps={cfg.ckpt_every}", "--log_every=1",
+              f"--scale={cfg.scale}", f"--device={device.type}")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "infilling")
+        outs = []
+        for steps in (cfg.steps, cfg.resume_steps):
+            lines = _cli("train-infilling", f"--model_dir={run}",
+                         f"--steps={steps}", *common, phase="gan")
+            outs.append(json.loads(lines[-1]))
+        recs = read_jsonl(os.path.join(run, "metrics.jsonl"))
+    first, second = outs
+    steps_logged = [r["step"] for r in recs if "gen_loss" in r]
+    _gate(failures, steps_logged == list(range(1, cfg.resume_steps + 1)),
+          f"logged steps {steps_logged}")
+    _gate(failures, all(np.isfinite(r[k]) for r in recs if "gen_loss" in r
+                        for k in ("gen_loss", "disc_loss")),
+          "a non-finite loss")
+    _gate(failures, first["changed"] == {"gen": True, "disc": True},
+          f"parameters changed: {first['changed']}")
+    _gate(failures, second["resumed"] is not None
+          and second["resumed"]["step"] == cfg.steps
+          and second["resumed"]["digest"] == first["digest"],
+          f"resumed {second['resumed']} against the saved state "
+          f"{first['digest']} at step {first['step']}")
+    _gate(failures, second["step"] == cfg.resume_steps,
+          f"resumed run ended at step {second['step']}")
+    for r in recs:
+        if "gen_loss" in r:
+            log("gan", f"step {r['step']}: d_fake {r['d_fake']:.4f} d_real "
+                f"{r['d_real']:.4f} gen_loss {r['gen_loss']:.4f} disc_loss "
+                f"{r['disc_loss']:.4f} trainee "
+                f"{'G' if r['train_gen'] else 'D'} (next step)")
+    for name, rec in (("first", first), ("resumed", second)):
+        log("gan", f"{name} call: steps {rec['start']}->{rec['step']}, "
+            f"{rec['ms_per_step']:.2f} ms/step, {rec['img_per_s']:.2f} "
+            f"img/s (batch {cfg.batch} at {cfg.crop}x{cfg.crop}; the "
+            f"process's first steps), peak "
+            + (f"{rec['peak_gib']:.2f} GiB" if rec["peak_gib"] is not None
+               else "n/a (CPU)"))
+    # Steady state: the logged steps' spacing (each step ends in a read of
+    # its metrics), past each process's first two steps.
+    t = {r["step"]: r["t"] for r in recs if "gen_loss" in r}
+    gaps = [1e3 * (t[i] - t[i - 1]) for i in t if i - 1 in t
+            and i not in (1, 2, cfg.steps + 1, cfg.steps + 2)]
+    steady = statistics.median(gaps) if gaps else None
+    if steady:
+        log("gan", f"steady state: {steady:.2f} ms a step (median of "
+            f"{len(gaps)}), {1e3 * cfg.batch / steady:.2f} img/s")
+    prof = gan_profile(device, cfg) if device.type == "cuda" else None
+    if failures:
+        raise AssertionError("gan: " + "; ".join(failures))
+    return {"first": first, "second": second, "steady_ms": steady,
+            "profile": prof}
+
+
+def gan_profile(device: torch.device, cfg: GanSmokeConfig) -> dict:
+    """The train-infilling step in this process, with torch's default
+    TF32 convolutions as the CLI runs it: 3 warm-up steps, 4 profiled
+    (generator and discriminator steps alternating): wall and device
+    busy ms, idle share, kernels a step, the costliest kernels."""
+    from emx_torch.bench.forward_profile import profile_forward
+    from emx_torch.data.degrade import fixed_scan_mask, infilling_example
+    from emx_torch.nn.infilling import (InfillingConfig, InfillingGenerator,
+                                        MultiscaleDiscriminator)
+    from emx_torch.train.gan import GANConfig, GANTrainer
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        net = InfillingConfig().scaled(cfg.scale) if cfg.scale != 1.0 \
+            else InfillingConfig()
+        trainer = GANTrainer(
+            InfillingGenerator(net, device=device),
+            MultiscaleDiscriminator(net, device=device),
+            GANConfig(log_every=0),
+            example_fn=infilling_example(fixed_scan_mask(
+                (cfg.crop, cfg.crop), 1 / 64)))
+        state = trainer.init()
+        data = iter(DeviceDataset(
+            synthetic_micrographs(2 * cfg.batch, cfg.crop),
+            PipelineConfig(batch_size=cfg.batch, crop_size=cfg.crop),
+            device=device))
+        turn = iter(range(1 << 30))
+
+        def step(_):
+            gen_turn = next(turn) % 2 == 0
+            trainer.step_fn(state, next(data), gen_turn, not gen_turn)
+
+        torch.cuda.reset_peak_memory_stats(device)
+        res = profile_forward(step, None, n=4)
+        res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log("gan", f"profiled step (TF32 convolutions, as the CLI): "
+        f"{res['wall_ms']:.2f} ms wall, {res['device_busy_ms']:.2f} ms "
+        f"device busy, idle {res['idle_share']:.3f}, "
+        f"{res['kernels_per_forward']:.0f} kernels a step, peak "
+        f"{res['peak_gib']:.2f} GiB; top {res['top_kernels_ms'][:6]}")
+    return res
+
+
+GAN_STATE = "docs/runs/gan_quality_300k/gan_state.npz"
+GAN_QUALITY_JSON = "docs/runs/gan_quality_300k/quality.json"
+
+
+@dataclasses.dataclass(frozen=True)
+class GanQualitySmokeConfig:
+    # The committed state (step 125000, scale 0.5, size 256, mse_weight
+    # 100, coverage 64) scored as its record was (eval only), then a few
+    # training steps from the same warm start.
+    state: str = GAN_STATE
+    record: str = GAN_QUALITY_JSON
+    batch: int = 8
+    train_steps: int = 20
+    corpus_size: int = 1024
+    nn_tol_db: float = 0.10
+    classical_tol_db: float = 0.02
+
+
+def phase_gan_quality(device: torch.device,
+                      cfg: GanQualitySmokeConfig) -> dict:
+    """gan_quality.main on the committed state: NN, classical and identity
+    rows against its quality.json; then train_steps steps from it."""
+    from emx_torch.bench import gan_quality
+    from emx_torch.bench.ladders import fingerprint
+
+    if not os.path.exists(cfg.state):
+        raise FileNotFoundError(f"{cfg.state} is missing: the phase scores "
+                                "the committed GAN state")
+    with open(cfg.record) as f:
+        rec = json.load(f)
+    with np.load(cfg.state) as z:
+        meta = json.loads(bytes(z["__meta_json__"]).decode())
+    log("gan_quality", f"{cfg.state} sha256 {file_sha256(cfg.state)}; "
+        f"meta {meta}")
+    size, coverage = meta["size"], meta["coverage"]
+    kw = dict(batch=cfg.batch, size=size, scale=meta["scale"],
+              mse_weight=meta["mse_weight"], init_from=cfg.state,
+              coverage=coverage, corpus_size=cfg.corpus_size,
+              device=device)
+    _, clean, _ = gan_quality.val_scans(size, coverage, device)
+    fp = fingerprint(clean).sum(dim=0).tolist()
+    log("gan_quality", f"val images (synthetic_micrographs(32, {size}, "
+        f"seed=999) in [-1, 1]) fingerprint sums {fp!r}")
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        got = gan_quality.main(os.path.join(tmp, "eval"),
+                               steps=meta["step"], **kw)
+        eval_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        trained = gan_quality.main(os.path.join(tmp, "train"),
+                                   steps=meta["step"] + cfg.train_steps,
+                                   log_every=1, **kw)
+        train_s = time.perf_counter() - t1
+    _gate(failures, got["steps"] == meta["step"] == rec["steps"],
+          f"scored step {got['steps']}, record {rec['steps']}")
+    rows = {"nn": cfg.nn_tol_db, **{k: cfg.classical_tol_db
+                                    for k in rec["all"] if k != "nn"}}
+    for k, tol in rows.items():
+        diff = got["all_exact"][k] - rec["all"][k]
+        log("gan_quality", f"{k}: port {got['all_exact'][k]:.4f} dB, "
+            f"record {rec['all'][k]} dB, diff {diff:+.4f} (gate +-{tol})")
+        _gate(failures, abs(diff) <= tol, f"{k} off by {diff:+.4f} dB")
+    diff = got["identity_exact"] - rec["identity_psnr_masked"]
+    log("gan_quality", f"identity: port {got['identity_exact']:.4f} dB, "
+        f"record {rec['identity_psnr_masked']} dB, diff {diff:+.4f}")
+    _gate(failures, abs(diff) <= cfg.classical_tol_db,
+          f"identity off by {diff:+.4f} dB")
+    _gate(failures, trained["steps"] == meta["step"] + cfg.train_steps
+          and np.isfinite(trained["nn_psnr_masked"]),
+          f"warm-start training ended at {trained['steps']}, nn "
+          f"{trained['nn_psnr_masked']}")
+    log("gan_quality", f"eval-only call {eval_s:.1f} s; {cfg.train_steps} "
+        f"training steps from the warm start (batch {cfg.batch} at "
+        f"{size}x{size}, scale {meta['scale']}, bf16): "
+        f"{trained['train_step_per_s']} steps/s, then nn "
+        f"{trained['nn_psnr_masked']} dB; call {train_s:.1f} s")
+    if failures:
+        raise AssertionError("gan_quality: " + "; ".join(failures))
+    return {"scored": got, "trained": trained}
+
+
+@dataclasses.dataclass(frozen=True)
+class GanDemoSmokeConfig:
+    # emx's demo (256x256, batch 8, half widths) cut to 200 steps: a
+    # checkpoint at step 100 comes before the collapse at the midpoint.
+    steps: int = 200
+
+
+def phase_gan_demo(device: torch.device, cfg: GanDemoSmokeConfig) -> dict:
+    """gan_demo.main: at least one rollback, one forced switch, and both
+    nets trained."""
+    from emx_torch.bench import gan_demo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = gan_demo.main(tmp, steps=cfg.steps, device=device)
+        seconds = time.perf_counter() - t0
+    failures = []
+    _gate(failures, out["rollbacks"] >= 1, "no rollback")
+    _gate(failures, out["forced_switches"] >= 1, "no forced switch")
+    _gate(failures, out["both_trained"], "one net never trained")
+    total = cfg.steps + gan_demo.STARVE_STEPS
+    log("gan_demo", f"{out}; {seconds:.1f} s for {total} loop steps, "
+        f"{1e3 * seconds / total:.1f} ms a step (with its per-step logging"
+        f" and checkpoints)")
+    if failures:
+        raise AssertionError("gan_demo: " + "; ".join(failures))
+    return out
+
+
+EWREC_ACCURACY_JSON = "docs/runs/ewrec_r4_accuracy.json"
+EWREC_DIAGNOSIS_JSON = "docs/runs/ewrec_r5_diagnosis.json"
+
+
+@dataclasses.dataclass(frozen=True)
+class EwrecSmokeConfig:
+    # emx's budgets: 15 slices, 512^2 for the rates, 256^2 for accuracy
+    # and the diagnosis, 50 GS iterations.
+    n_slices: int = 15
+    rate_side: int = 512
+    side: int = 256
+    num_iter: int = 50
+    tol: float = 0.001
+    check_records: bool = True
+    cli_side: int = 128
+
+
+FOCAL_STEP = 300.0   # defocus step of the CLI's focal series (Angstrom)
+
+
+def write_focal_series(root: str, n: int, seed: int = 3) -> np.ndarray:
+    """A known exit wave imaged at five defocuses FOCAL_STEP apart, each
+    slice translated by a known subpixel shift, as TIFFs numbered in
+    defocus order; returns the wave. The wave is scripts/e2e_drive.py's
+    (smooth phase bumps) with a band-limited texture in its phase (0.3
+    rad rms) and amplitude (0.05 rms): without it, phase correlation of
+    the defocused slices does not lock, and its amplitude alone would
+    reach 0.95 of the wave (0.93 with it)."""
+    from emx_torch.io.tiff import write_tiff
+    from emx_torch.physics.propagate import propagate_back_to_defocus
+    from emx_torch.recon import fourier_shift
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    amp = 1.0 + 0.1 * np.sin(2 * np.pi * (2 * xx + yy))
+    phase = np.zeros((n, n), np.float32)
+    for _ in range(4):
+        cy, cx = rng.uniform(0.2, 0.8, 2)
+        sg = rng.uniform(0.05, 0.15)
+        phase += rng.uniform(0.2, 0.8) * np.exp(
+            -(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sg ** 2)))
+    k = np.fft.fftfreq(n)
+    tex = np.fft.ifft2(np.fft.fft2(rng.random((n, n))) * np.exp(
+        -(k[:, None] ** 2 + k[None, :] ** 2) / (2 * 0.15 ** 2))).real
+    tex = (tex - tex.mean()) / tex.std()
+    wave = ((amp + 0.05 * tex) * np.exp(1j * (phase + 0.3 * tex))
+            ).astype(np.complex64)
+    dfs = FOCAL_STEP * torch.tensor([-2.0, -1.0, 0.0, 1.0, 2.0])
+    shifts = torch.tensor([[1.5, -2.0], [0.5, 1.0], [0.0, 0.0],
+                           [-1.25, 0.5], [2.0, 1.5]])
+    with torch.no_grad():
+        stack = torch.abs(propagate_back_to_defocus(
+            torch.from_numpy(wave), dfs, 0.025)) ** 2
+        stack = fourier_shift(stack, shifts)
+    os.makedirs(root, exist_ok=True)
+    for i, img in enumerate(stack.numpy()):
+        write_tiff(os.path.join(root, f"slice_{i:02d}.tif"),
+                   img.astype(np.float32))
+    return wave
+
+
+def phase_ewrec(device: torch.device, cfg: EwrecSmokeConfig) -> dict:
+    """GS rates, the accuracy and diagnosis rows against emx's records,
+    and `ewrec` through the CLI on a focal series of TIFFs."""
+    from emx_torch.bench import ewrec_bench, ewrec_diagnosis
+    from emx_torch.io.tiff import read_tiff
+
+    failures = []
+    t0 = time.perf_counter()
+    rates = ewrec_bench.measure(cfg.n_slices, cfg.rate_side, cfg.num_iter,
+                                device=device)
+    log("ewrec", f"{json.dumps(rates)}"
+        + (f" on {card_name_and_power()}" if device.type == "cuda" else ""))
+    acc = ewrec_bench.accuracy_vs_dose(cfg.n_slices, cfg.side, cfg.num_iter,
+                                       device=device)
+    diag = ewrec_diagnosis.main(cfg.side, cfg.n_slices, device=device)
+    if cfg.check_records:
+        with open(EWREC_ACCURACY_JSON) as f:
+            ref_acc = json.load(f)["complex_corr"]
+        with open(EWREC_DIAGNOSIS_JSON) as f:
+            ref_diag = json.load(f)
+        rows = [(f"accuracy {k}", acc["complex_corr"][k], v)
+                for k, v in ref_acc.items()]
+        rows += [(f"gs_corr_vs_iters {k}", diag["gs_corr_vs_iters"][k], v)
+                 for k, v in ref_diag["gs_corr_vs_iters"].items()]
+        rows.append(("weak_phase_corr", diag["weak_phase_corr"],
+                     ref_diag["weak_phase_corr"]))
+        for name, got, ref in rows:
+            log("ewrec", f"{name}: port {got}, record {ref}")
+            _gate(failures, abs(got - ref) <= cfg.tol + 1e-9,
+                  f"{name} {got} against {ref}")
+    with tempfile.TemporaryDirectory() as tmp:
+        stack_dir = os.path.join(tmp, "stack")
+        out_dir = os.path.join(tmp, "out")
+        wave = write_focal_series(stack_dir, cfg.cli_side)
+        lines = _cli("ewrec", f"--stack_dir={stack_dir}", f"--out={out_dir}",
+                     f"--num_iter={cfg.num_iter}", f"--device={device.type}",
+                     phase="ewrec")
+        rec = read_tiff(os.path.join(out_dir, "amplitude.tif")) * np.exp(
+            1j * read_tiff(os.path.join(out_dir, "phase.tif")))
+    def corr_with_wave(w):
+        return abs(np.vdot(w, wave)) / (np.linalg.norm(w)
+                                        * np.linalg.norm(wave))
+
+    corr = corr_with_wave(rec)
+    dfs = json.loads(lines[0].split(":", 1)[1])
+    step = (dfs[-1] - dfs[0]) / (len(dfs) - 1)
+    log("ewrec", f"cli: {' | '.join(lines)}; defocus step {step:.2f} "
+        f"(true {FOCAL_STEP}); complex |corr| {corr:.4f} against the known "
+        f"wave (gate > 0.95; its amplitude alone "
+        f"{corr_with_wave(np.abs(wave)):.4f})")
+    _gate(failures, corr > 0.95, f"cli reconstruction corr {corr:.4f}")
+    _gate(failures, abs(step - FOCAL_STEP) <= 0.1 * FOCAL_STEP,
+          f"cli defocus step {step:.2f}, true {FOCAL_STEP}")
+    log("ewrec", f"{time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("ewrec: " + "; ".join(failures))
+    return {"rates": rates, "accuracy": acc, "diagnosis": diag,
+            "cli_corr": corr}
+
+
 def kernels_line(kernel_results: list[dict], launches: int,
                  degrade: dict, degrade_launches: int,
                  phase_launches: dict | None = None,
@@ -1846,6 +2231,10 @@ def main() -> None:
     auto = phase_auto(device, AutoSmokeConfig())
     phase_export(device, ExportSmokeConfig())
     qat = phase_qat(device, QatSmokeConfig())
+    phase_gan(device, GanSmokeConfig())
+    phase_gan_quality(device, GanQualitySmokeConfig())
+    phase_gan_demo(device, GanDemoSmokeConfig())
+    phase_ewrec(device, EwrecSmokeConfig())
     print(json.dumps(kernels_line(
         kernel_results, served["launches"], degraded, trained_launches,
         {"serve": served["launches"], "deploy": deployed["launches"],

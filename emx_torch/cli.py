@@ -11,6 +11,10 @@ default; cpu runs a command on the CPU).
       [psnr_gate] [--scope=head|refine|decoder|decoder2]
   python -m emx_torch.cli quant-check <artifact.npz> [out_dir]
   python -m emx_torch.cli serve --artifact=... --port=8501
+  python -m emx_torch.cli train-infilling --model_dir=... [--steps=N]
+  python -m emx_torch.cli gan-quality [out_dir] [steps]
+  python -m emx_torch.cli gan-demo [out_dir] [steps]
+  python -m emx_torch.cli ewrec --stack_dir=<focal-series TIFFs> --out=...
 
 The other commands of emx's raise NotImplementedError naming the
 ROADMAP.md Queue 1 item that ports them.
@@ -53,6 +57,10 @@ class InfillingCLIConfig(Config):
     steps: int = config_field(700_000, "train steps (reference hard stop)")
     coverage: int = config_field(64, "1/coverage of pixels scanned")
     seed: int = config_field(0, "seed")
+    log_every: int = config_field(100, "metric cadence")
+    ckpt_every_steps: int = config_field(10_000, "checkpoint cadence")
+    scale: float = config_field(1.0, "width multiplier (1.0 = reference)")
+    device: str = config_field("cuda", "cuda, or cpu")
 
 
 @dataclasses.dataclass
@@ -153,6 +161,100 @@ def train_denoiser(argv: list[str]) -> None:
         "graph": g}), flush=True)
 
 
+def digest(obj) -> str:
+    """sha256 of the bytes of every tensor in `obj` (nested dicts, lists
+    and tuples; other leaves by repr): equal digests, equal contents."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            h.update(o.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o, key=str):
+                h.update(str(k).encode())
+                walk(o[k])
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+        else:
+            h.update(repr(o).encode())
+
+    walk(obj)
+    return h.hexdigest()
+
+
+def train_infilling(argv: list[str]) -> None:
+    """Train the infilling GAN at the reference's full width
+    (InfillingConfig(), float32; --scale shrinks it) on 1/coverage partial scans of TIFF
+    crops or synthetic micrographs, resuming from model_dir/ckpt (a port
+    addition: emx's command starts afresh). Ends with one JSON line: the
+    steps, seconds, img/s, peak memory on a card, whether each net's
+    parameters changed, and the state's digest after a resume and at the
+    end."""
+    import torch
+
+    from emx_torch.data.degrade import fixed_scan_mask, infilling_example
+    from emx_torch.nn.infilling import (InfillingConfig, InfillingGenerator,
+                                        MultiscaleDiscriminator)
+    from emx_torch.train import Checkpointer
+    from emx_torch.train.gan import GANConfig, GANTrainer
+    from emx_torch.utils.device import resolve_device
+
+    c = InfillingCLIConfig.from_args(argv)
+    device = resolve_device(c.device)
+    mask = fixed_scan_mask((c.crop_size, c.crop_size), 1.0 / c.coverage)
+    cfg = InfillingConfig().scaled(c.scale) if c.scale != 1.0 else \
+        InfillingConfig()
+    trainer = GANTrainer(
+        InfillingGenerator(cfg, device=device),
+        MultiscaleDiscriminator(cfg, device=device),
+        GANConfig(model_dir=c.model_dir, ckpt_every_steps=c.ckpt_every_steps,
+                  seed=c.seed, log_every=c.log_every),
+        example_fn=infilling_example(mask))
+    pipe = _pipeline(c.data_dir, c.batch_size, c.crop_size, c.seed)
+    state = trainer.init()
+    ckpt = Checkpointer(f"{c.model_dir}/ckpt")
+    resumed = None
+    try:
+        state, pipe_state = ckpt.restore(state)
+        if pipe_state:
+            pipe.load_state_dict(pipe_state)
+        resumed = {"step": state.step,
+                   "digest": digest(state.state_dict())}
+        print(f"resumed from step {state.step} at cursor "
+              f"{pipe.state_dict()}", flush=True)
+    except FileNotFoundError:
+        pass
+    start = state.step
+    before = [digest(list(n.parameters())) for n in (state.gen, state.disc)]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = trainer.fit(state, pipe, c.steps, checkpointer=ckpt)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    after = [digest(list(n.parameters())) for n in (state.gen, state.disc)]
+    print(f"trained to step {state.step}", flush=True)
+    print(json.dumps({
+        "step": state.step, "start": start, "fit_s": seconds,
+        "ms_per_step": (1e3 * seconds / (state.step - start)
+                        if state.step > start else None),
+        "img_per_s": ((state.step - start) * c.batch_size / seconds
+                      if state.step > start else None),
+        "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                     if device.type == "cuda" else None),
+        "changed": {"gen": before[0] != after[0],
+                    "disc": before[1] != after[1]},
+        "cursor": pipe.state_dict(), "resumed": resumed,
+        "digest": digest(state.state_dict()), **trainer.stats}), flush=True)
+
+
 def harvest(argv: list[str]) -> None:
     @dataclasses.dataclass
     class HarvestConfig(Config):
@@ -237,6 +339,63 @@ def qat_finetune(argv: list[str]) -> None:
         run(art, out, steps, psnr_gate=gate, device=_device(argv))
 
 
+def gan_demo(argv: list[str]) -> None:
+    """GAN training-dynamics demonstration (emx_torch.bench.gan_demo)."""
+    from emx_torch.bench.gan_demo import main as run
+
+    a = _positional(argv)
+    run(a[0] if a else "runs/gan_demo", int(a[1]) if len(a) > 1 else 560,
+        device=_device(argv))
+
+
+def gan_quality(argv: list[str]) -> None:
+    """GAN infilling quality anchor (emx_torch.bench.gan_quality)."""
+    from emx_torch.bench.gan_quality import main as run
+
+    a = _positional(argv)
+    run(a[0] if a else "runs/gan_quality",
+        int(a[1]) if len(a) > 1 else 20000, device=_device(argv))
+
+
+def run_ewrec(argv: list[str]) -> None:
+    """Exit-wave reconstruction of a focal series of TIFFs (sorted by the
+    digits in their names): align to the middle slice, search the
+    defocus step, reconstruct; writes amplitude.tif and phase.tif."""
+    @dataclasses.dataclass
+    class EwrecConfig(Config):
+        stack_dir: str = config_field("", "dir of focal-series TIFFs")
+        wavelength: float = config_field(0.025, "electron wavelength (A)")
+        num_iter: int = config_field(50, "GS iterations")
+        out: str = config_field("ewrec_out", "output dir")
+        device: str = config_field("cuda", "cuda, or cpu")
+
+    import numpy as np
+    import torch
+
+    from emx_torch.io.tiff import read_tiff, write_tiff
+    from emx_torch.recon import EWRECConfig, align_stack, ewrec
+    from emx_torch.utils.device import resolve_device
+
+    c = EwrecConfig.from_args(argv)
+    paths = sorted(glob.glob(f"{c.stack_dir}/*.tif"),
+                   key=lambda p: int("".join(ch for ch in p.split("/")[-1]
+                                             if ch.isdigit()) or 0))
+    if not paths:
+        raise SystemExit(f"no TIFFs in {c.stack_dir}")
+    device = resolve_device(c.device)
+    stack = torch.stack([torch.from_numpy(read_tiff(p).astype(np.float32))
+                         for p in paths]).to(device)
+    aligned, _ = align_stack(stack)
+    res = ewrec(aligned, EWRECConfig(wavelength=c.wavelength,
+                                     num_iter=c.num_iter))
+    write_tiff(f"{c.out}/amplitude.tif", res["amplitude"].cpu().numpy())
+    write_tiff(f"{c.out}/phase.tif", res["phase"].cpu().numpy())
+    dfs = [round(float(d), 2) for d in res["defocuses"].cpu()]
+    print(f"defocuses: {dfs}", flush=True)
+    print(f"loss: {float(res['loss']):.3e}; wrote {c.out}/amplitude.tif, "
+          "phase.tif", flush=True)
+
+
 def _unported(name: str, item: int):
     def command(argv: list[str]) -> None:
         raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
@@ -245,8 +404,7 @@ def _unported(name: str, item: int):
 
 
 # ROADMAP.md Queue 1 item that ports each command not ported yet.
-_QUEUE_ITEM = {"train-infilling": 4, "ewrec": 4, "gan-demo": 8,
-               "gan-quality": 8, "zoo-ladder": 8, "dqn-autofocus": 8}
+_QUEUE_ITEM = {"zoo-ladder": 8, "dqn-autofocus": 8}
 COMMANDS = {
     **{name: _unported(name, item) for name, item in _QUEUE_ITEM.items()},
     "train-denoiser": train_denoiser,
@@ -256,6 +414,10 @@ COMMANDS = {
     "quality": quality,
     "quant-check": quant_check,
     "qat-finetune": qat_finetune,
+    "train-infilling": train_infilling,
+    "gan-demo": gan_demo,
+    "gan-quality": gan_quality,
+    "ewrec": run_ewrec,
 }
 
 

@@ -18,15 +18,26 @@ hands the draws in through pinned buffers, so an eager step and a
 replayed one see the same values, and both see what eager steps saw
 before graphs existed.
 
+The partial-scan infilling GAN's examples
+(reference gan-infilling-100.py:1147-1192): fixed Bernoulli scan masks
+drawn with numpy's legacy RandomState (bit-exact with emx's, so a mask
+is the same on every machine), the -1 fill of unscanned pixels, the
+[-1, 1] normalisation, and `infilling_example(mask)`, a SplitExample
+whose draws are one D4 choice per image. `occlude` (large occlusions,
+adversarial_micrograph_gen.py:956-990) takes its draws from
+`occlude_draws`, `box_downsample` averages integer blocks.
+
 `gaussian_blur` (separable, zero padding) serves the classical filters
-(emx_torch.analysis.filters). Masks, occlusion and downsampling are not
-ported yet (ROADMAP.md Queue 1).
+(emx_torch.analysis.filters).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -110,3 +121,112 @@ def gaussian_blur(img: torch.Tensor, sigma: float,
     out = sum(k[i] * p[..., i:i + h, :] for i in range(2 * radius + 1))
     p = F.pad(out, (radius, radius))
     return sum(k[i] * p[..., i:i + w] for i in range(2 * radius + 1))
+
+
+def bernoulli_mask(generator: torch.Generator, shape: tuple[int, int],
+                   coverage: float) -> torch.Tensor:
+    """Boolean scan mask with a `coverage` fraction of pixels selected,
+    drawn on the generator's device."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u < coverage
+
+
+def fixed_scan_mask(shape: tuple[int, int] = (512, 512),
+                    coverage: float = 1 / 64, seed: int = 1,
+                    device: str | torch.device = "cpu") -> torch.Tensor:
+    """The reference's fixed training mask (np.random.seed(1), then
+    uniform < coverage; gan-infilling-100.py:1173-1175), bit-exact with
+    numpy's legacy RandomState, as emx draws it."""
+    rs = np.random.RandomState(seed)
+    return torch.from_numpy(rs.random_sample(shape) < coverage).to(device)
+
+
+def apply_partial_scan(img: torch.Tensor, mask: torch.Tensor,
+                       fill: float = -1.0) -> torch.Tensor:
+    """Unscanned pixels take `fill` (-1 in the reference, outside data
+    normalised to [-1, 1])."""
+    return torch.where(mask, img, torch.full_like(img, fill))
+
+
+def norm_neg1to1(img: torch.Tensor, dim=(-2, -1)) -> torch.Tensor:
+    """Rescale to [-1, 1] over `dim`; constant images map to 0
+    (reference gan-infilling-100.py norm_img:1147-1160)."""
+    lo = torch.amin(img, dim=dim, keepdim=True)
+    hi = torch.amax(img, dim=dim, keepdim=True)
+    a = 0.5 * (lo + hi)
+    b = 0.5 * (hi - lo)
+    ok = b > 5e-7
+    return torch.where(ok, (img - a) / torch.where(ok, b, torch.ones_like(b)),
+                       torch.zeros_like(img))
+
+
+def infilling_draws(seed: int, b: int, device: torch.device | str = "cpu"
+                    ) -> dict[str, torch.Tensor]:
+    """One step's random values for `b` images: a D4 choice per image
+    from a generator on `device` seeded by fold_in(seed, 0)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(fold_in(seed, 0))
+    return {"d4": torch.randint(0, 8, (b,), generator=gen, device=device)}
+
+
+def infilling_apply(draws: dict[str, torch.Tensor], imgs: torch.Tensor,
+                    mask: torch.Tensor):
+    """A batch of (partial scan, full) GAN-infilling pairs
+    (gan-infilling-100.py record_parser:1184-1192): sanitize (NaN -> 0)
+    -> [-1, 1] -> a D4 transform per image -> the scan mask's -1 fill."""
+    imgs = norm_neg1to1(sanitize(imgs, 0.0))
+    imgs = flip_rotate(imgs, draws["d4"])
+    return apply_partial_scan(imgs, mask.to(imgs.device)), imgs
+
+
+def infilling_example(mask: torch.Tensor) -> SplitExample:
+    """The infilling example function for scan mask `mask` (emx's
+    functools.partial(infilling_example, mask=mask))."""
+    return SplitExample(infilling_draws,
+                        functools.partial(infilling_apply, mask=mask))
+
+
+def occlude_draws(generator: torch.Generator, b: int, n: int
+                  ) -> dict[str, torch.Tensor]:
+    """Per image of a batch of `b` n x n images: the occlusion's kind (0
+    centred rectangle, 1 side block, 2 corner), its two half sizes, the
+    side block's size and a D4 choice, on the generator's device."""
+    dev = generator.device
+
+    def ints(hi):
+        return torch.randint(0, hi, (b,), generator=generator, device=dev)
+
+    return {"choice": ints(3), "half1": ints(n // 2 + 1) // 2,
+            "half2": ints(n // 2 + 1) // 2, "side": ints(n + 1),
+            "d4": ints(8)}
+
+
+def occlude(imgs: torch.Tensor, draws: dict[str, torch.Tensor],
+            mark: float = 0.5) -> torch.Tensor:
+    """Large occlusions of a (B, n, n) batch: a centred rectangle, an
+    axis-aligned side block or a corner block set to `mark`, then a D4
+    transform (adversarial_micrograph_gen.py gen_lq:956-990)."""
+    n = imgs.shape[-1]
+    d = {k: v.to(imgs.device)[:, None, None] for k, v in draws.items()}
+    rows = torch.arange(n, device=imgs.device)[None, :, None]
+    cols = torch.arange(n, device=imgs.device)[None, None, :]
+    h1, h2 = d["half1"], d["half2"]
+    center = ((rows >= h1) & (rows < n - h1)
+              & (cols >= h2) & (cols < n - h2))
+    side = (rows < d["side"]) & (cols < d["side"])
+    corner = (rows < h1) & (cols < h2)
+    choice = d["choice"]
+    mask = torch.where(choice == 0, center,
+                       torch.where(choice == 1, side, corner))
+    out = torch.where(mask, torch.full_like(imgs, mark), imgs)
+    return flip_rotate(out, draws["d4"])
+
+
+def box_downsample(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Box (area-average) downsampling of the last two dims by an integer
+    factor, MATLAB imresize 'box' semantics (img_params.m:31)."""
+    *lead, h, w = img.shape
+    if h % factor or w % factor:
+        raise ValueError(f"size {h}x{w} does not divide factor {factor}")
+    r = img.reshape(*lead, h // factor, factor, w // factor, factor)
+    return r.mean(dim=(-3, -1))

@@ -83,6 +83,22 @@ class Conv(nn.Module):
         return y + self.bias.to(self.dtype)
 
 
+class Dense(nn.Module):
+    """Twin of flax `nn.Dense`: `kernel` (in, out) as flax stores it, the
+    product and the bias in the module's dtype."""
+
+    def __init__(self, cin: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(cin, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x.to(self.dtype) @ self.kernel.to(self.dtype)
+                + self.bias.to(self.dtype))
+
+
 class ConvTranspose(nn.Module):
     """Twin of flax `nn.ConvTranspose((3, 3), strides=(2, 2), "SAME")`.
     The weight holds the flax kernel flipped in space, as (I, O, 3, 3):
@@ -106,8 +122,8 @@ class ConvTranspose(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """Twin of flax `nn.GroupNorm` (eps 1e-6): statistics in float32,
-    output in the module's dtype."""
+    """Twin of flax `nn.GroupNorm` (eps 1e-6): statistics in at least
+    float32, output in the module's dtype."""
 
     def __init__(self, channels: int, groups: int, dtype: torch.dtype):
         super().__init__()
@@ -121,8 +137,9 @@ class GroupNorm(nn.Module):
             # bias, where F.group_norm refuses a batch of one.
             y = self.bias.float().expand(x.shape)
             return y.to(self.dtype).contiguous()
-        y = F.group_norm(x.float().permute(0, 3, 1, 2), self.groups,
-                         self.weight.float(), self.bias.float(), eps=1e-6)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        y = F.group_norm(x.to(dt).permute(0, 3, 1, 2), self.groups,
+                         self.weight.to(dt), self.bias.to(dt), eps=1e-6)
         return y.permute(0, 2, 3, 1).to(self.dtype).contiguous()
 
 

@@ -19,7 +19,8 @@ import math
 import torch
 from torch import nn
 
-from emx_torch.nn.blocks import BatchNorm, Conv, ConvTranspose, GroupNorm
+from emx_torch.nn.blocks import (BatchNorm, Conv, ConvTranspose, Dense,
+                                 GroupNorm)
 
 _TRUNC_STD = 0.87962566103423978  # std of N(0, 1) truncated to [-2, 2]
 _PHI = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))  # P(N(0, 1) < -2)
@@ -55,6 +56,10 @@ def init_parameters(model: nn.Module,
                 truncated_normal_(mod.weight, std, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, Dense):            # kernel (in, out)
+                std = math.sqrt(1.0 / mod.kernel.shape[0]) / _TRUNC_STD
+                truncated_normal_(mod.kernel, std, generator)
+                mod.bias.zero_()
             elif isinstance(mod, (GroupNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()

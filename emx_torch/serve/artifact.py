@@ -6,7 +6,10 @@ the int8 serving recipe under `__quant_json__`. Plain numpy reads and
 writes it, in emx's format: a bundle the port saves loads in emx's
 `load_denoiser_artifact` and the reverse. `save_pytree_npz` and
 `load_pytree_like` keep warm-start states (params, batch stats) in the
-same one-file form.
+same one-file form; `save_gan_state` / `load_gan_state` move an
+infilling GAN's state (emx's gan_state.npz: gen_params, gen_stats,
+disc_params, disc_stats, pred_avg, pred_avg_real) between such a file
+and the port's nets, in emx's keys, so either package reads the other's.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from emx_torch.nn.denoiser import Denoiser, DenoiserConfig
-from emx_torch.serve.convert import load_flax_params
+from emx_torch.serve.convert import load_flax_params, to_flax_params
 from emx_torch.utils.device import resolve_device
 
 _CFG_KEY = "__config_json__"
@@ -119,6 +122,40 @@ def load_pytree_like(path: str, ref_tree):
         return type(ref)(v)
 
     return pick(ref_tree, ""), meta
+
+
+def save_gan_state(path: str, state, meta: dict | None = None) -> None:
+    """Write a GANState's nets and EMAs as emx's gan_state.npz (what
+    emx.bench.gan_quality's save_resume writes and init_from reads)."""
+    gp, gs = to_flax_params(state.gen)
+    dp, ds = to_flax_params(state.disc)
+    save_pytree_npz(path, {
+        "gen_params": gp, "gen_stats": gs, "disc_params": dp,
+        "disc_stats": ds,
+        "pred_avg": np.float32(float(state.pred_avg)),
+        "pred_avg_real": np.float32(float(state.pred_avg_real))}, meta)
+
+
+def load_gan_state(path: str, state) -> dict:
+    """Fill a GANState's nets and EMAs in place from a gan_state.npz
+    (emx's or the port's); returns the file's meta. Optimizer moments are
+    untouched (emx's init_from restarts them too). Raises as
+    load_flax_params does for a key that fits no port tensor."""
+    with np.load(path) as z:
+        meta = (json.loads(bytes(z[_META_KEY]).decode())
+                if _META_KEY in z.files else {})
+        flat = {k: z[k] for k in z.files if k != _META_KEY}
+
+    def part(prefix):
+        return {k[len(prefix) + 1:]: v for k, v in flat.items()
+                if k.startswith(prefix + _SEP)}
+
+    load_flax_params(state.gen, part("gen_params"), part("gen_stats"))
+    load_flax_params(state.disc, part("disc_params"), part("disc_stats"))
+    with torch.no_grad():
+        state.pred_avg.fill_(float(flat["pred_avg"]))
+        state.pred_avg_real.fill_(float(flat["pred_avg_real"]))
+    return meta
 
 
 def read_artifact(path: str):

@@ -165,16 +165,16 @@ def dense_quantized_apply(model: nn.Module, amax: dict[str, Any],
                           ) -> Callable[[torch.Tensor], torch.Tensor]:
     """`quantized_apply`, with each qualifying SepConvBlock's depthwise ->
     pointwise pair folded into one dense 3x3 conv: int8 when `quantized`
-    and the block's Conv_0 is calibrated and neither of its convs is in
-    `skip`, else float. Returns fn(x)."""
+    and the block's Conv_0 is calibrated and not in `skip` (as emx
+    decides: a skip naming only the Conv_1 leaves the pair int8), else
+    float. Returns fn(x)."""
     skip = set(skip)
 
     def claim(mod):
         if not _fusable(mod):
             return None
-        dw_path, pw_path = mod.Conv_0.path, mod.Conv_1.path
-        int8 = (quantized and dw_path in amax
-                and not {dw_path, pw_path} & skip)
+        dw_path = mod.Conv_0.path
+        int8 = quantized and dw_path in amax and dw_path not in skip
         return DenseSepConv(mod, min_pixels,
                             _scale_of(amax[dw_path]) if int8 else None)
 

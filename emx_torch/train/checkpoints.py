@@ -9,6 +9,12 @@ cursor. It is written to a temporary file and renamed into place, so a
 crash mid-save never leaves a truncated checkpoint. emx's orbax layout
 is not read or written. `restore` loads into a live TrainState, so a
 resumed run continues bit for bit on the CPU.
+
+A GAN state (emx_torch.train.gan.GANState) is saved the same way, from
+its own `state_dict`: the step, both nets, both optimizers (Adam's
+moments and counts, the learning rates) and the prediction EMAs; with
+the pipeline cursor beside them. `rollback` restores the newest, the
+GAN's collapse recovery.
 """
 
 from __future__ import annotations
@@ -43,12 +49,14 @@ class Checkpointer:
              pipeline_state: dict | None = None, wait: bool = False) -> None:
         """Write checkpoint `step`; drop the oldest beyond max_to_keep.
         Saves are synchronous, so `wait` has nothing to wait for."""
-        payload = {"step": int(state.step),
-                   "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict(),
-                   "pipeline": (None if pipeline_state is None else
-                                {k: int(v) for k, v in
-                                 pipeline_state.items()})}
+        payload = ({"step": int(state.step), "state": state.state_dict()}
+                   if hasattr(state, "state_dict") else
+                   {"step": int(state.step),
+                    "model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict()})
+        payload["pipeline"] = (None if pipeline_state is None else
+                               {k: int(v) for k, v in
+                                pipeline_state.items()})
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -64,11 +72,17 @@ class Checkpointer:
     def restore(self, target_state: TrainState, step: int | None = None
                 ) -> tuple[TrainState, dict | None]:
         """Load checkpoint `step` (the latest by default) into
-        `target_state` (Trainer.init's output) in place; returns
-        (state, pipeline_state or None)."""
+        `target_state` (Trainer.init's or GANTrainer.init's output) in
+        place; returns (state, pipeline_state or None)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        if hasattr(target_state, "load_state_dict"):
+            device = next(target_state.gen.parameters()).device
+            payload = torch.load(self._path(step), map_location=device,
+                                 weights_only=True)
+            target_state.load_state_dict(payload["state"])
+            return target_state, payload["pipeline"]
         device = next(target_state.model.parameters()).device
         payload = torch.load(self._path(step), map_location=device,
                              weights_only=True)

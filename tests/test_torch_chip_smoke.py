@@ -491,3 +491,4 @@ def test_files_phase_checks_the_resume(monkeypatch):
     with pytest.raises(AssertionError, match="resumed"):
         chip_smoke.phase_files(CPU, chip_smoke.FilesSmokeConfig(
             **FILES_TINY))
+

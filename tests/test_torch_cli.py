@@ -1,4 +1,5 @@
-"""`python -m emx_torch.cli harvest`, `train-denoiser` and `bench-train`
+"""`python -m emx_torch.cli harvest`, `train-denoiser`, `bench-train`,
+`train-infilling` and `ewrec`
 end to end on the CPU (`--device=cpu`, tiny widths), each against its
 emx counterpart: harvest's census and manifest against emx's harvest
 command on the same DM corpus; train-denoiser's directory artifact run
@@ -144,3 +145,62 @@ def test_cli_bench_train_end_to_end(monkeypatch, capsys):
         k: want[k] for k in ("s2d", "batch", "dtype", "norm")}
     assert train_bench.LADDER[-1]["steps_per_launch"] == 8
     assert train_bench.LADDER[:-1] == emx_train_bench.LADDER
+
+
+def test_cli_train_infilling_end_to_end(tmp_path, capsys):
+    """`train-infilling` at a tiny width on the CPU: 2 steps with a
+    checkpoint each step, then a second call resumes at step 2 with the
+    saved state (equal digests) and trains to 3; every step logged."""
+    from emx_torch.utils.metrics import read_jsonl
+
+    args = [f"--model_dir={tmp_path}", "--batch_size=2", "--crop_size=32",
+            "--scale=0.01", "--log_every=1", "--ckpt_every_steps=1",
+            "--device=cpu"]
+    outs = []
+    for steps in (2, 3):
+        cli.main(["train-infilling", f"--steps={steps}", *args])
+        outs.append(json.loads(capsys.readouterr().out.splitlines()[-1]))
+    first, second = outs
+    assert first["step"] == 2 and first["resumed"] is None
+    assert first["changed"] == {"gen": True, "disc": True}
+    assert second["resumed"] == {"step": 2, "digest": first["digest"]}
+    assert second["step"] == 3 and second["digest"] != first["digest"]
+    steps = [r["step"] for r in read_jsonl(str(tmp_path / "metrics.jsonl"))
+             if "gen_loss" in r]
+    assert steps == [1, 2, 3]
+
+
+def test_cli_ewrec_end_to_end(tmp_path, capsys):
+    """`ewrec` on the focal series of emx's tests/test_cli.py (three
+    64x64 TIFFs): aligned, the defocus searched and the wave
+    reconstructed as emx's command does (its functions, in process): the
+    complex wave amplitude * exp(i phase) within 1e-3 (where the amplitude
+    is near 0 the phase alone is ill-defined)."""
+    import importlib
+
+    import jax.numpy as jnp
+    from emx.io.tiff import write_tiff
+    from emx.physics.propagate import propagate_back_to_defocus
+    from emx.recon import EWRECConfig, align_stack
+    from emx_torch.io.tiff import read_tiff
+
+    emx_ewrec = importlib.import_module("emx.recon.ewrec").ewrec
+    wave = jnp.asarray(synthetic_micrographs(1, 64, seed=3)[0],
+                       jnp.complex64)
+    stack_dir = tmp_path / "stack"
+    stack_dir.mkdir()
+    imgs = []
+    for i, df in enumerate([-150.0, 0.0, 150.0]):
+        imgs.append(np.asarray(jnp.abs(
+            propagate_back_to_defocus(wave, df, 0.025)) ** 2))
+        write_tiff(str(stack_dir / f"img{i + 1}.tif"), imgs[-1])
+    cli.main(["ewrec", f"--stack_dir={stack_dir}", "--num_iter=10",
+              f"--out={tmp_path}/rec", "--device=cpu"])
+    assert "loss:" in capsys.readouterr().out
+    aligned, _ = align_stack(jnp.asarray(np.stack(imgs)))
+    ref = emx_ewrec(aligned, EWRECConfig(wavelength=0.025, num_iter=10))
+    amp = read_tiff(str(tmp_path / "rec" / "amplitude.tif"))
+    phase = read_tiff(str(tmp_path / "rec" / "phase.tif"))
+    np.testing.assert_allclose(amp, np.asarray(ref["amplitude"]), atol=1e-3)
+    np.testing.assert_allclose(amp * np.exp(1j * phase),
+                               np.asarray(ref["exit_wave"]), atol=1e-3)

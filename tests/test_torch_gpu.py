@@ -485,3 +485,79 @@ def test_resume_under_a_graph(deterministic, tmp_path):
     a, b = _params(ws), _params(gs)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_gan_step_on_the_card(cuda):
+    """A small GAN step (generator, then discriminator) on the card against
+    the same step on the CPU: the same draws, metrics within 1e-3
+    relative, and every parameter within 2 lr, all but 0.1% of them
+    within 1e-4 (float32; cuDNN's convolution algorithms differ from the
+    CPU's in rounding). Adam's first step moves an element by
+    lr g / (|g| + 1e-8): where g is rounding noise or near 1e-8 the two
+    devices' steps differ by up to 2 lr. Widths of 64 (two channels a
+    norm group) keep that rare: at the tiny config's one channel a group
+    every conv bias before a norm is cancelled by it, and 212 elements
+    of the tiny nets moved apart on an H100; at width 64, 71 of
+    233,878."""
+    from emx_torch.data.degrade import fixed_scan_mask, infilling_example
+    from emx_torch.nn.infilling import (InfillingConfig, InfillingGenerator,
+                                        MultiscaleDiscriminator)
+    from emx_torch.train.gan import GANConfig, GANTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = InfillingConfig(gen_features=(64,) * 4, nin_down=(64,) * 3,
+                          nin_up=(64,) * 3, num_global_blocks=1,
+                          num_local_blocks=1, disc_features=(64,) * 3)
+    data = torch.from_numpy(synthetic_micrographs(2, 32, seed=21))
+    mask = fixed_scan_mask((32, 32), 1 / 16)
+    results = []
+    for dev in ("cpu", cuda):
+        trainer = GANTrainer(InfillingGenerator(cfg, device=dev),
+                             MultiscaleDiscriminator(cfg, device=dev),
+                             GANConfig(gen_lr=1e-3, disc_lr=1e-3,
+                                       mse_weight=10.0, log_every=0),
+                             example_fn=infilling_example(mask))
+        state = trainer.init()
+        metrics = []
+        for do_gen in (True, False):
+            draws = trainer.step_draws(state.step, 2, 32)
+            draws["example"] = {"d4": torch.tensor([3, 6], device=dev)}
+            state, m = trainer.step_fn(state, data, do_gen, not do_gen,
+                                       draws=draws)
+            metrics.append({k: float(v) for k, v in m.items()})
+        params = [p.detach().cpu() for net in (state.gen, state.disc)
+                  for p in net.parameters()]
+        results.append((metrics, params))
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = results
+    for a, b in zip(m_cpu, m_gpu):
+        for k in a:
+            assert b[k] == pytest.approx(a[k], rel=1e-3, abs=1e-6), k
+    d = torch.cat([(b - a).abs().reshape(-1) for a, b in zip(p_cpu, p_gpu)])
+    assert float(d.max()) <= 2e-3 + 1e-6
+    assert int((d > 1e-4).sum()) <= d.numel() // 1000, int((d > 1e-4).sum())
+
+
+@pytest.mark.gpu
+def test_reconstruct_on_the_card(cuda):
+    """EWREC's GS loop and the weak-phase residual on the card (cuFFT)
+    against the CPU (pocketfft): the wave within 1e-4 after 30
+    iterations, the residual within 1e-4 relative."""
+    from emx_torch.physics.propagate import propagate_back_to_defocus
+    from emx_torch.recon import (EWRECConfig, reconstruct,
+                                 weak_phase_residual)
+
+    rng = np.random.default_rng(0)
+    wave = (1.0 + 0.1 * rng.random((128, 128))) * np.exp(
+        1j * 0.5 * rng.random((128, 128)))
+    dfs = torch.tensor([-300.0, -150.0, 0.0, 150.0, 300.0])
+    ints = torch.abs(propagate_back_to_defocus(
+        torch.from_numpy(wave.astype(np.complex64)), dfs, 0.025)) ** 2
+    cfg = EWRECConfig(num_iter=30)
+    cpu = reconstruct(torch.sqrt(ints), dfs, cfg)
+    gpu = reconstruct(torch.sqrt(ints).to(cuda), dfs.to(cuda), cfg)
+    assert gpu.device.type == "cuda"
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-4)
+    r_cpu = weak_phase_residual(ints, dfs, cfg)
+    r_gpu = weak_phase_residual(ints.to(cuda), dfs.to(cuda), cfg)
+    assert float(r_gpu) == pytest.approx(float(r_cpu), rel=1e-4, abs=1e-7)

@@ -69,8 +69,13 @@ print(len(names))
     "io/tiff.py", "io/dm.py", "io/dm_native.py", "io/manifest.py",
     "data/crops.py", "data/harvest.py", "physics/stats.py",
     "train/dose_probe.py", "bench/pipeline_bench.py",
-    "bench/train_bench.py"])
+    "bench/train_bench.py", "data/degrade.py", "nn/infilling.py",
+    "train/gan.py", "train/checkpoints.py", "analysis/inpaint.py",
+    "bench/gan_quality.py", "bench/gan_demo.py", "physics/ctf.py",
+    "physics/propagate.py", "recon/__init__.py", "recon/ewrec.py",
+    "recon/align.py", "recon/fit.py", "bench/ewrec_bench.py",
+    "bench/ewrec_diagnosis.py", "serve/artifact.py"])
 def test_recipe_modules_are_checked(name):
-    """The recipe's and the file path's modules and the CLI are among
-    the files checked."""
+    """The recipe's, the file path's, the GAN's and EWREC's modules and
+    the CLI are among the files checked."""
     assert ROOT / "emx_torch" / name in PORT_FILES

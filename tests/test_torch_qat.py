@@ -550,14 +550,18 @@ def test_fresh_calibration_of_the_flagship_against_emx(capsys):
     ("InfillingCLIConfig", ["--coverage=16", "--steps=10"]),
 ])
 def test_cli_configs_parse_like_emx(cls, argv):
-    """emx's flags parse to emx's values; the port adds `device` and
-    (train-denoiser) `steps_per_launch`, at cuda and 1."""
+    """emx's flags parse to emx's values; the port adds `device` (cuda),
+    to train-denoiser `steps_per_launch` (1), and to train-infilling the
+    values emx's command fixes (`log_every` 100, `ckpt_every_steps`
+    10000) and `scale` (1.0)."""
     ref = getattr(emx_cli, cls).from_args(argv).to_dict()
     got = getattr(cli, cls).from_args(argv).to_dict()
     assert {k: got[k] for k in ref} == ref
     assert {k: got[k] for k in set(got) - set(ref)} == (
         {"device": "cuda", "steps_per_launch": 1}
-        if cls == "DenoiserCLIConfig" else {})
+        if cls == "DenoiserCLIConfig" else
+        {"device": "cuda", "log_every": 100, "ckpt_every_steps": 10_000,
+         "scale": 1.0})
 
 
 def test_cli_serve_flags():
@@ -574,21 +578,30 @@ def test_cli_serve_flags():
     ("quant-check", ["b.npz", "out"]),
     ("qat-finetune", ["b.npz", "out", "300", "36.0", "--scope=decoder2"]),
     ("qat-finetune", ["b.npz", "out", "30"]),
+    ("gan-quality", ["runs/g", "300"]),
+    ("gan-quality", []),
+    ("gan-demo", ["runs/d", "200"]),
+    ("gan-demo", []),
 ])
 def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     """Each implemented command calls its tool with the arguments emx's
     CLI passes, plus the device."""
+    import emx.bench.gan_demo as egd
+    import emx.bench.gan_quality as egq
     import emx.bench.qat_finetune as eq
     import emx.bench.quality_run as er
     import emx.bench.quant_check as ec
+    from emx_torch.bench import gan_demo, gan_quality
     emx_calls, port_calls = [], []
     for mod, names in ((er, ["main"]), (ec, ["main"]),
-                       (eq, ["main", "head_distill"])):
+                       (eq, ["main", "head_distill"]), (egq, ["main"]),
+                       (egd, ["main"])):
         for n in names:
             monkeypatch.setattr(mod, n, lambda *a, _n=n, **k:
                                 emx_calls.append((_n, a, k)))
     for mod, names in ((quality_run, ["main"]), (quant_check, ["main"]),
-                       (qat_finetune, ["main", "head_distill"])):
+                       (qat_finetune, ["main", "head_distill"]),
+                       (gan_quality, ["main"]), (gan_demo, ["main"])):
         for n in names:
             monkeypatch.setattr(mod, n, lambda *a, _n=n, **k:
                                 port_calls.append((_n, a, k)))
@@ -603,7 +616,8 @@ def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
 @pytest.mark.parametrize("command", sorted(
     set(emx_cli.COMMANDS) - {"serve", "quality", "quant-check",
                              "qat-finetune", "train-denoiser", "harvest",
-                             "bench-train"}))
+                             "bench-train", "train-infilling", "ewrec",
+                             "gan-demo", "gan-quality"}))
 def test_cli_unported_commands_raise(command):
     assert set(cli.COMMANDS) == set(emx_cli.COMMANDS)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
