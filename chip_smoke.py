@@ -148,10 +148,32 @@ non-zero and prints no result):
              emx_torch.cli ewrec` on a focal series of five 128x128 TIFFs
              (known wave, defocus step 300, subpixel shifts): complex
              |corr| above 0.95 and the defocus step within 10%.
- 20. the kernels line (JSON), then the last line
+ 20. zoo     emx_torch.bench.zoo_ladder.main on every family (small_ae,
+             xception_ae, latent_ae, embedder, kernels, vaegan, manifold,
+             embedder_nce and the three vaegan variants) at the records'
+             scale 0.25 and size 96, cut to 40-3500 steps of the records'
+             4000/16000 (ZooSmokeConfig.family_steps), under cuDNN's
+             deterministic algorithms. Gates against
+             docs/runs/zoo_ladder*/quality.json: every anchor made from
+             numpy data alone
+             (anchor_const_psnr, chance, anchor_identity_psnr) within
+             +-0.01; losses finite, the last below the first; small_ae,
+             xception_ae and latent_ae above their const anchor and the
+             kernel bank's best above the Gaussian filter. Then five steps
+             of each family's full-width (scale 1) config: steps/s, step
+             ms and peak GiB of steps 2-5.
+ 21. style   emx_torch.bench.style_artifact.main uncut (800 steps at
+             128^2, style weight 2000) on docs/runs/port_style/inputs.npz
+             (emx's feature parameters and canvas noise; the artifact
+             runs cuDNN's deterministic algorithms): gram_gap_closed
+             and content_correlation within +-0.02 of docs/runs/style_r3/
+             quality.json and within +-0.01 of emx's own CPU run recorded
+             in the inputs file; seconds and steps/s.
+ 22. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
-     No GAN or EWREC function reaches K1 or K2: emx computes them with
-     XLA convolutions and jnp.fft, the port with cuDNN and cuFFT.
+     No GAN, EWREC, zoo or style function reaches K1 or K2: emx computes
+     them with XLA convolutions and jnp.fft, the port with cuDNN and
+     cuFFT; the line's phase counts for zoo and style say so (0).
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
 model from a seed. The phases are functions of (device, config), so the
@@ -2160,6 +2182,215 @@ def phase_ewrec(device: torch.device, cfg: EwrecSmokeConfig) -> dict:
             "cli_corr": corr}
 
 
+ZOO_RECORDS = ("docs/runs/zoo_ladder/quality.json",
+               "docs/runs/zoo_ladder_ext/quality.json",
+               "docs/runs/zoo_ladder_ext2/quality.json",
+               "docs/runs/zoo_ladder_ext3/quality.json")
+# The anchors a family computes from numpy data alone (no draw, no
+# training): they must equal emx's records.
+ZOO_ANCHORS = ("anchor_const_psnr", "chance", "anchor_identity_psnr")
+# (first, last) loss keys of each family's result.
+ZOO_LOSSES = (("first_loss", "final_loss"), ("first_mse", "final_mse"),
+              ("first_recon_loss", "final_recon_loss"))
+# The families run once at full width: the ladder's scale-1 configs.
+ZOO_FULL_WIDTH = ("small_ae", "xception_ae", "latent_ae", "embedder",
+                  "vaegan", "manifold")
+
+
+def zoo_records(paths=ZOO_RECORDS) -> dict:
+    """Every family's result in emx's zoo records, the later files' over
+    the earlier (the 16000-step runs over the 4000-step ones)."""
+    out = {}
+    for path in paths:
+        with open(path) as f:
+            out.update(json.load(f)["families"])
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ZooSmokeConfig:
+    # The records' scale and size, each family cut to `steps` (4000 and
+    # 16000 in the records) unless `family_steps` says otherwise; the
+    # cut runs take cuDNN's deterministic algorithms, so that each gate
+    # reads the same number on every run of one card and library. The
+    # reconstruction gates need small_ae past ~1000 steps and latent_ae
+    # past ~3250: its PSNR sits on its anchor (15.25) for the first
+    # thousands of steps, and over seeds 0-4 it is above it at every
+    # 250th step from 3250 on, by +0.66 to +1.93 dB at 3500, where at
+    # 2000 seed 2 is under it (-0.10; seed 0 +0.03;
+    # scripts/zoo_latent_curve.py on an H100). The others, at 13-65 ms a
+    # step, are cut to what their gates need.
+    scale: float = 0.25
+    size: int = 96
+    steps: int = 120
+    family_steps: tuple = (("small_ae", 1200), ("latent_ae", 3500),
+                           ("embedder", 300), ("kernels", 200),
+                           ("vaegan", 60), ("vaegan_kl01", 40),
+                           ("vaegan_anneal", 40), ("vaegan_wass01", 40))
+    anchor_tol: float = 0.01
+    full_width: tuple = ZOO_FULL_WIDTH
+    full_width_steps: int = 5
+
+
+def zoo_gates(results: dict, records: dict, anchor_tol: float) -> list[str]:
+    """The zoo phase's gates on zoo_ladder results: no family errored;
+    every numpy-only anchor equals the record's within `anchor_tol`;
+    losses finite and the last below the first; the reconstruction
+    families' PSNR above their const anchor and the kernel bank's best
+    above the Gaussian filter (the directions every 4000-step record
+    shows)."""
+    from emx_torch.bench.zoo_ladder import RECON_FAMILIES
+
+    failures = []
+    for name, r in results.items():
+        if "error" in r:
+            failures.append(f"{name}: {r['error']}")
+            continue
+        rec = records.get(name, {})
+        for k in ZOO_ANCHORS:
+            if k in r and k in rec:
+                _gate(failures, abs(r[k] - rec[k]) <= anchor_tol + 1e-9,
+                      f"{name} {k} {r[k]} against the record's {rec[k]}")
+        for first, last in ZOO_LOSSES:
+            if first in r:
+                _gate(failures, np.isfinite(r[first])
+                      and np.isfinite(r[last]) and r[last] < r[first],
+                      f"{name} {last} {r[last]} not below {first} "
+                      f"{r[first]}")
+        if name in RECON_FAMILIES:
+            _gate(failures, r["psnr"] > r["anchor_const_psnr"],
+                  f"{name} psnr {r['psnr']} not above its const anchor "
+                  f"{r['anchor_const_psnr']}")
+        if name == "kernels":
+            _gate(failures, r["best_psnr"] > r["anchor_gaussian_psnr"],
+                  f"kernels best {r['best_psnr']} not above the Gaussian "
+                  f"{r['anchor_gaussian_psnr']}")
+    return failures
+
+
+def _launch_counts() -> tuple[int, int]:
+    return fused_sepconv.launches, fused_poisson_degrade.launches
+
+
+def phase_zoo(device: torch.device, cfg: ZooSmokeConfig) -> dict:
+    """emx_torch.bench.zoo_ladder.main on every family at the records'
+    scale and size, cut; zoo_gates against emx's records; then each
+    full-width family for a few steps: steps/s, step ms, peak GiB. No K1
+    or K2 launch (the zoo's convolutions are cuDNN's, as emx's were
+    XLA's)."""
+    from emx_torch.bench import zoo_ladder
+
+    names = list(zoo_ladder.FAMILIES)
+    steps_of = {n: dict(cfg.family_steps).get(n, cfg.steps) for n in names}
+    before = _launch_counts()
+    results, t0 = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for steps in sorted(set(steps_of.values())):
+            group = [n for n in names if steps_of[n] == steps]
+            out = zoo_ladder.main(os.path.join(tmp, f"cut{steps}"), steps,
+                                  cfg.scale, cfg.size, families=group,
+                                  device=device, deterministic=True)
+            results.update(out["families"])
+    cut_s = time.perf_counter() - t0
+    records = zoo_records()
+    failures = zoo_gates(results, records, cfg.anchor_tol)
+    card = f" on {card_name_and_power()}" if device.type == "cuda" else ""
+    for name in names:
+        r, rec = results[name], records.get(name, {})
+        rate = (f"{r['steps_per_s']} steps/s, {r['step_ms']} ms a step, "
+                f"peak {r['peak_gib']} GiB" if "steps_per_s" in r
+                else "no rate (CPU)")
+        log("zoo", f"{name} ({steps_of[name]} steps at scale {cfg.scale}, "
+            f"{cfg.size}^2): {json.dumps(r)}; {rate}; emx's record (TPU, "
+            f"longer run) "
+            f"{json.dumps({k: v for k, v in rec.items() if k != 'seconds'})}")
+    full = {}
+    for name in cfg.full_width:
+        t1 = time.perf_counter()
+        r = zoo_ladder.FAMILIES[name](cfg.full_width_steps, 1.0, cfg.size,
+                                      device=device)
+        full[name] = r
+        _gate(failures, "error" not in r and all(
+            np.isfinite(r[k]) for pair in ZOO_LOSSES for k in pair
+            if k in r), f"full-width {name}: {r}")
+        rate = (f"{r['steps_per_s']} steps/s, {r['step_ms']} ms a step "
+                f"(steps 2-{cfg.full_width_steps}, the evaluation after "
+                f"them not counted), peak {r['peak_gib']} GiB"
+                if "steps_per_s" in r else "no rate (CPU)")
+        log("zoo", f"full width {name}: {rate}; call "
+            f"{time.perf_counter() - t1:.1f} s")
+    after = _launch_counts()
+    _gate(failures, after == before,
+          f"K1/K2 launches moved {before} -> {after}")
+    log("zoo", f"cut ladder {cut_s:.1f} s, whole phase "
+        f"{time.perf_counter() - t0:.1f} s{card}; K1/K2 launches in the "
+        f"phase: {after[0] - before[0]}/{after[1] - before[1]}")
+    if failures:
+        raise AssertionError("zoo: " + "; ".join(failures))
+    return {"cut": results, "full_width": full,
+            "launches": (after[0] - before[0], after[1] - before[1])}
+
+
+STYLE_JSON = "docs/runs/style_r3/quality.json"
+
+
+@dataclasses.dataclass(frozen=True)
+class StyleSmokeConfig:
+    # The record's budget: 800 Adam steps at 128^2, style weight 2000.
+    steps: int = 800
+    size: int = 128
+    style_weight: float = 2000.0
+    record: str = STYLE_JSON
+    tol: float = 0.02         # against the record (a TPU run)
+    emx_cpu_tol: float = 0.01  # against emx's run on the inputs' CPU
+
+
+def phase_style(device: torch.device, cfg: StyleSmokeConfig) -> dict:
+    """emx_torch.bench.style_artifact.main on the committed inputs
+    (emx's feature parameters and canvas noise): gram_gap_closed and
+    content_correlation within `tol` of the record and within
+    `emx_cpu_tol` of emx's own run recorded in the inputs file."""
+    from emx_torch.bench import style_artifact
+
+    with open(cfg.record) as f:
+        rec = json.load(f)
+    with np.load(style_artifact.INPUTS) as z:
+        emx_cpu = json.loads(bytes(z["meta_json"]).decode())["emx_cpu"]
+    before = _launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = style_artifact.main(tmp, cfg.size, cfg.steps,
+                                  cfg.style_weight, device=device)
+        written = sorted(os.listdir(tmp))
+    failures = []
+    _gate(failures, (rec["steps"], rec["size"], rec["style_weight"])
+          == (cfg.steps, cfg.size, cfg.style_weight),
+          f"the record ran {rec['steps']} steps at {rec['size']}, weight "
+          f"{rec['style_weight']}")
+    _gate(failures, written == ["content.tif", "output.tif", "quality.json",
+                                "style.tif"], f"wrote {written}")
+    for k in ("gram_gap_closed", "content_correlation"):
+        port = got[f"{k}_exact"]
+        log("style", f"{k}: port {port:.4f}, record {rec[k]} (diff "
+            f"{port - rec[k]:+.4f}, gate +-{cfg.tol}), emx on a CPU "
+            f"{emx_cpu[k]:.4f} (diff {port - emx_cpu[k]:+.4f}, gate "
+            f"+-{cfg.emx_cpu_tol})")
+        _gate(failures, abs(port - rec[k]) <= cfg.tol,
+              f"{k} {port:.4f} against the record's {rec[k]}")
+        _gate(failures, abs(port - emx_cpu[k]) <= cfg.emx_cpu_tol,
+              f"{k} {port:.4f} against emx's CPU run {emx_cpu[k]:.4f}")
+    _gate(failures, got["ok"], "the artifact's own ok is false")
+    after = _launch_counts()
+    _gate(failures, after == before, "K1/K2 launched")
+    got["launches"] = (after[0] - before[0], after[1] - before[1])
+    if got["seconds"] is not None:
+        log("style", f"{cfg.steps} Adam steps in {got['seconds']:.2f} s "
+            f"({cfg.steps / got['seconds']:.1f} steps/s) on "
+            f"{card_name_and_power()}")
+    if failures:
+        raise AssertionError("style: " + "; ".join(failures))
+    return got
+
+
 def kernels_line(kernel_results: list[dict], launches: int,
                  degrade: dict, degrade_launches: int,
                  phase_launches: dict | None = None,
@@ -2235,14 +2466,20 @@ def main() -> None:
     phase_gan_quality(device, GanQualitySmokeConfig())
     phase_gan_demo(device, GanDemoSmokeConfig())
     phase_ewrec(device, EwrecSmokeConfig())
+    zoo = phase_zoo(device, ZooSmokeConfig())
+    style = phase_style(device, StyleSmokeConfig())
+    # The zoo and style phases reach neither kernel: their entries are
+    # the counts read around them (0).
     print(json.dumps(kernels_line(
         kernel_results, served["launches"], degraded, trained_launches,
         {"serve": served["launches"], "deploy": deployed["launches"],
          "decision": decided["launches"], "auto": auto["launches"],
-         "qat": qat["k1_launches"]},
+         "qat": qat["k1_launches"], "zoo": zoo["launches"][0],
+         "style": style["launches"][0]},
         {"train": trained_launches, "graph": graphed["launches"],
          "files": files["launches"], "quality": quality["launches"],
-         "qat": qat["k2_launches"]})), flush=True)
+         "qat": qat["k2_launches"], "zoo": zoo["launches"][1],
+         "style": style["launches"][1]})), flush=True)
     log("done", f"{time.perf_counter() - t0:.1f} s on {info['smi']}; "
         f"deploy K1 launches {deployed['launches']}")
     print(json.dumps({"ok": True, "device": {

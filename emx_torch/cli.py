@@ -357,6 +357,16 @@ def gan_quality(argv: list[str]) -> None:
         int(a[1]) if len(a) > 1 else 20000, device=_device(argv))
 
 
+def zoo_ladder(argv: list[str]) -> None:
+    """Model-zoo trained-quality ladder (emx_torch.bench.zoo_ladder)."""
+    from emx_torch.bench.zoo_ladder import main as run
+
+    a = _positional(argv)
+    run(a[0] if a else "runs/zoo_ladder",
+        int(a[1]) if len(a) > 1 else 1500,
+        float(a[2]) if len(a) > 2 else 0.25, device=_device(argv))
+
+
 def run_ewrec(argv: list[str]) -> None:
     """Exit-wave reconstruction of a focal series of TIFFs (sorted by the
     digits in their names): align to the middle slice, search the
@@ -404,7 +414,7 @@ def _unported(name: str, item: int):
 
 
 # ROADMAP.md Queue 1 item that ports each command not ported yet.
-_QUEUE_ITEM = {"zoo-ladder": 8, "dqn-autofocus": 8}
+_QUEUE_ITEM = {"dqn-autofocus": 7}
 COMMANDS = {
     **{name: _unported(name, item) for name, item in _QUEUE_ITEM.items()},
     "train-denoiser": train_denoiser,
@@ -418,6 +428,7 @@ COMMANDS = {
     "gan-demo": gan_demo,
     "gan-quality": gan_quality,
     "ewrec": run_ewrec,
+    "zoo-ladder": zoo_ladder,
 }
 
 

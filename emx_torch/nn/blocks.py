@@ -16,6 +16,7 @@ pads (0, 1), a dilated 3x3 conv pads `rate` on each side.
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -25,6 +26,23 @@ from torch import nn
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0)
+
+
+class Named(nn.Module):
+    """A module whose children are registered under flax's auto names:
+    the class name and the count of earlier children of that class."""
+
+    def __init__(self):
+        super().__init__()
+        self._counts: dict[str, int] = {}
+
+    def _add(self, mod: nn.Module) -> str:
+        cls = type(mod).__name__
+        i = self._counts.get(cls, 0)
+        self._counts[cls] = i + 1
+        name = f"{cls}_{i}"
+        self.add_module(name, mod)
+        return name
 
 
 def same_pads(size: int, kernel: int, stride: int,
@@ -85,18 +103,19 @@ class Conv(nn.Module):
 
 class Dense(nn.Module):
     """Twin of flax `nn.Dense`: `kernel` (in, out) as flax stores it, the
-    product and the bias in the module's dtype."""
+    product and the bias in the module's dtype; dtype None promotes the
+    input's with the parameters', as flax's `dtype=None` does."""
 
     def __init__(self, cin: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype | None = torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(cin, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x.to(self.dtype) @ self.kernel.to(self.dtype)
-                + self.bias.to(self.dtype))
+        dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
 
 
 class ConvTranspose(nn.Module):
@@ -229,19 +248,29 @@ class ConvBlock(nn.Module):
         return relu6(self.Norm_0(self.Conv_0(x), train))
 
 
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2
+               ) -> torch.Tensor:
+    """flax nn.leaky_relu(x, 0.2), the zoo's activation."""
+    return F.leaky_relu(x, negative_slope)
+
+
 class SepConvBlock(nn.Module):
-    """Depthwise 3x3 (stride, dilation) -> pointwise 1x1 -> norm -> relu6."""
+    """Depthwise 3x3 (stride, dilation) -> pointwise 1x1 -> norm ->
+    activation (relu6 unless given: the latent and style families pass
+    `leaky_relu`). Only a relu6 block with norm 'none' can run on K1
+    (emx_torch/serve/fused.py checks both)."""
 
     def __init__(self, cin: int, features: int, strides: int = 1,
                  rate: int = 1, norm: str = "batch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 activation: Callable[[torch.Tensor], torch.Tensor] = relu6):
         super().__init__()
         self.Conv_0 = Conv(cin, cin, 3, strides, rate, groups=cin,
                            dtype=dtype)
         self.Conv_1 = Conv(cin, features, 1, dtype=dtype)
         self.Norm_0 = Norm(norm, features, dtype)
         self.strides, self.rate, self.norm = strides, rate, norm
-        self.activation = relu6
+        self.activation = activation
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return self.activation(self.Norm_0(self.Conv_1(self.Conv_0(x)), train))

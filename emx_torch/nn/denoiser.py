@@ -26,7 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from emx_torch.nn.blocks import (ASPP, BatchNorm, ConvBlock, DeconvBlock,
-                                 SepConvBlock, XceptionMiddleBlock,
+                                 Named, SepConvBlock, XceptionMiddleBlock,
                                  _resize_bilinear)
 from emx_torch.utils.device import resolve_device
 
@@ -101,24 +101,15 @@ def _gaussian_blur_nhwc(x: torch.Tensor, sigma: float) -> torch.Tensor:
 _OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-class _FlaxNamed(nn.Module):
-    """Children registered under flax's names (class name and the count
-    of earlier children of that class), and the decoder, refinement and
-    folded-head stages that Denoiser and FoldedHeadTail share."""
+class _FlaxNamed(Named):
+    """Children registered under flax's names, and the decoder,
+    refinement and folded-head stages that Denoiser and FoldedHeadTail
+    share."""
 
     def __init__(self, config: DenoiserConfig):
         super().__init__()
         self.config = config
-        self._counts: dict[str, int] = {}
         self._kw = dict(norm=config.norm, dtype=config.dtype)
-
-    def _add(self, mod: nn.Module) -> str:
-        cls = type(mod).__name__
-        i = self._counts.get(cls, 0)
-        self._counts[cls] = i + 1
-        name = f"{cls}_{i}"
-        self.add_module(name, mod)
-        return name
 
     def _decoder_stage(self, cin: int, width: int) -> tuple[str, ...]:
         cfg, kw = self.config, self._kw

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from emx_torch.nn.blocks import (Conv, Dense, Norm, SepConvBlock,
+from emx_torch.nn.blocks import (Conv, Dense, Named, Norm, SepConvBlock,
                                  XceptionMiddleBlock, _avg_pool_2x2_same,
                                  _resize_bilinear, relu6)
 from emx_torch.utils.device import resolve_device
@@ -70,24 +70,7 @@ class InfillingConfig:
             disc_features=tuple(s(v) for v in (32, 64, 128, 256, 512)))
 
 
-class _Named(nn.Module):
-    """Children registered under flax's auto names: the class name and the
-    count of earlier children of that class."""
-
-    def __init__(self):
-        super().__init__()
-        self._counts: dict[str, int] = {}
-
-    def _add(self, mod: nn.Module) -> str:
-        cls = type(mod).__name__
-        i = self._counts.get(cls, 0)
-        self._counts[cls] = i + 1
-        name = f"{cls}_{i}"
-        self.add_module(name, mod)
-        return name
-
-
-class InfillingGenerator(_Named):
+class InfillingGenerator(Named):
     def __init__(self, config: InfillingConfig = InfillingConfig(),
                  device: str | torch.device = "cuda", cin: int = 1):
         """Parameters start at zero: emx_torch.serve.convert fills them
@@ -165,7 +148,7 @@ class InfillingGenerator(_Named):
         return out[..., 0] if squeeze else out
 
 
-class _DiscriminatorHead(_Named):
+class _DiscriminatorHead(Named):
     """emx's _DiscriminatorHead: [2x2 average pool], stride-2 separable
     blocks, global average pool, dense logit (float32)."""
 

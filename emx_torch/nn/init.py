@@ -9,7 +9,9 @@ from the distributions flax's defaults draw from (not the same numbers):
     (the truncated unit normal's std), with fan_in = kh * kw * cin /
     groups (9 for a depthwise 3x3). A transposed conv's fan_in is 9 *
     cin, as flax computes it on its (3, 3, cin, cout) kernel;
-  * biases zero, norm scales one, BatchNorm running mean 0 and var 1.
+  * biases zero, norm scales one, BatchNorm running mean 0 and var 1;
+  * a module with an `init_from(generator)` method initialises itself
+    (the zoo's tied kernels and spectral-normalised layers).
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ def init_parameters(model: nn.Module,
                 if isinstance(mod, BatchNorm):
                     mod.mean.zero_()
                     mod.var.fill_(1.0)
+            elif hasattr(mod, "init_from"):
+                mod.init_from(generator)
             elif any(True for _ in mod.parameters(recurse=False)):
                 raise TypeError(f"no initialiser for {name or 'the model'} "
                                 f"({type(mod).__name__})")

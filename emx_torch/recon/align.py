@@ -91,10 +91,14 @@ def align_stack(stack: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def affine_warp(img: torch.Tensor, matrix: torch.Tensor,
-                offset: torch.Tensor) -> torch.Tensor:
+                offset: torch.Tensor, order: int = 1) -> torch.Tensor:
     """Sample `img` (H, W) at A @ [y, x] + t (output coordinates to input
-    coordinates), bilinearly, coordinates outside clamped to the edge:
-    map_coordinates(order=1, mode="nearest")."""
+    coordinates), coordinates outside clamped to the edge, as
+    map_coordinates(order=order, mode="nearest"): bilinearly at order 1,
+    at the nearest pixel at order 0 (a coordinate on .5 rounds away from
+    zero, as lax.round does)."""
+    if order not in (0, 1):
+        raise ValueError(f"affine_warp takes order 0 or 1, got {order}")
     h, w = img.shape[-2:]
     dt = matrix.dtype
     yy, xx = torch.meshgrid(torch.arange(h, dtype=dt, device=img.device),
@@ -102,11 +106,17 @@ def affine_warp(img: torch.Tensor, matrix: torch.Tensor,
                             indexing="ij")
     coords = torch.stack([yy.reshape(-1), xx.reshape(-1)])
     src = matrix @ coords + offset[:, None]
+    flat = img.reshape(-1)
+    if order == 0:
+        iy, ix = (torch.sign(c) * torch.floor(torch.abs(c) + 0.5)
+                  for c in src)
+        iy = torch.clamp(iy.long(), 0, h - 1)
+        ix = torch.clamp(ix.long(), 0, w - 1)
+        return flat[iy * w + ix].reshape(h, w)
     out = 0.0
     i0 = [torch.floor(c) for c in src]
     fr = [c - f for c, f in zip(src, i0)]
     i0 = [f.long() for f in i0]
-    flat = img.reshape(-1)
     for dy in (0, 1):
         wy = fr[0] if dy else 1.0 - fr[0]
         iy = torch.clamp(i0[0] + dy, 0, h - 1)

@@ -28,6 +28,9 @@ from emx_torch.nn.blocks import BatchNorm, Conv, ConvTranspose, GroupNorm
 def _source(mod: nn.Module, name: str):
     """(collection, flax leaf name, layout change in, layout change out)
     of a port tensor."""
+    coll = getattr(mod, "FLAX_COLLECTIONS", {}).get(name)
+    if coll is not None:
+        return coll, name, None, None
     if name == "weight" and isinstance(mod, ConvTranspose):
         return ("params", "kernel",
                 lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1),
@@ -47,22 +50,27 @@ def _tensors(model: nn.Module):
     every parameter and buffer of `model`."""
     for mname, mod in model.named_modules():
         prefix = mname.replace(".", "/")
-        for name, t in (list(mod.named_parameters(recurse=False))
-                        + list(mod.named_buffers(recurse=False))):
+        buffers = [(n, t) for n, t in mod.named_buffers(recurse=False)
+                   if n not in mod._non_persistent_buffers_set]
+        for name, t in list(mod.named_parameters(recurse=False)) + buffers:
             coll, leaf, change_in, change_out = _source(mod, name)
             key = f"{prefix}/{leaf}" if prefix else leaf
             yield coll, key, t, change_in, change_out
 
 
 def load_flax_params(model: nn.Module, params: dict[str, np.ndarray],
-                     batch_stats: dict[str, np.ndarray] | None = None
+                     batch_stats: dict[str, np.ndarray] | None = None,
+                     spectral: dict[str, np.ndarray] | None = None
                      ) -> nn.Module:
     """Fill `model` in place from flat flax dicts; returns `model`.
+    `spectral` is the VAE-GAN's power-iteration collection (the `u` of
+    emx_torch.nn.vaegan's SNConv and SNDense).
 
     Raises KeyError for a port tensor with no key, ValueError for a
     shape mismatch or for keys that no port tensor used."""
-    flat = {"params": dict(params), "batch_stats": dict(batch_stats or {})}
-    used: dict[str, set] = {"params": set(), "batch_stats": set()}
+    flat = {"params": dict(params), "batch_stats": dict(batch_stats or {}),
+            "spectral": dict(spectral or {})}
+    used: dict[str, set] = {k: set() for k in flat}
     with torch.no_grad():
         for coll, key, t, change, _ in _tensors(model):
             if key not in flat[coll]:
@@ -83,16 +91,23 @@ def load_flax_params(model: nn.Module, params: dict[str, np.ndarray],
     return model
 
 
-def to_flax_params(model: nn.Module
-                   ) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
-    """The flat flax dicts (params, batch_stats) of `model`, float32
-    numpy in flax's layouts; `load_flax_params` of them gives the model
-    back."""
+def to_flax_variables(model: nn.Module) -> dict[str, dict[str, np.ndarray]]:
+    """Every flax collection of `model` as flat dicts of float32 numpy in
+    flax's layouts: {"params": ..., "batch_stats": ..., ...}."""
     flat: dict[str, dict[str, np.ndarray]] = {"params": {},
                                               "batch_stats": {}}
     for coll, key, t, _, change in _tensors(model):
         a = t.detach().float().cpu().numpy()
         if change is not None:
             a = change(a)
-        flat[coll][key] = np.ascontiguousarray(a)
+        flat.setdefault(coll, {})[key] = np.ascontiguousarray(a)
+    return flat
+
+
+def to_flax_params(model: nn.Module
+                   ) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """The flat flax dicts (params, batch_stats) of `model`, float32
+    numpy in flax's layouts; `load_flax_params` of them gives the model
+    back."""
+    flat = to_flax_variables(model)
     return flat["params"], flat["batch_stats"]

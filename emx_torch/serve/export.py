@@ -133,11 +133,34 @@ def save_artifact(path: str, model_name: str, config: dict,
         f.write(msgpack_codec.packb(_sorted_tree(variables)))
 
 
-def load_artifact(path: str) -> Artifact:
+def _restore(template: Any, state: Any, path: str = "") -> Any:
+    """flax.serialization.from_state_dict on nested dicts: the template's
+    keys taken from `state` (a key it lacks raises ValueError, keys it
+    adds are dropped); leaves are the stored arrays."""
+    if not isinstance(template, dict):
+        return state
+    if not isinstance(state, dict):
+        raise ValueError(f"expected a dict at {path or '/'}, got "
+                         f"{type(state).__name__}")
+    missing = sorted(set(map(str, template)) - set(state))
+    if missing:
+        raise ValueError(f"the target dict keys {missing} are not present "
+                         f"in the state dict at {path or '/'}")
+    return {k: _restore(v, state[str(k)], f"{path}/{k}")
+            for k, v in template.items()}
+
+
+def load_artifact(path: str, template_variables: Any | None = None
+                  ) -> Artifact:
+    """Read a directory artifact. `template_variables` given: its nested
+    dict structure is restored from the file, as flax's
+    `serialization.from_bytes(template, blob)` does."""
     with open(os.path.join(path, "artifact.json")) as f:
         meta = json.load(f)
     with open(os.path.join(path, "params.msgpack"), "rb") as f:
         variables = msgpack_codec.unpackb(f.read())
+    if template_variables is not None:
+        variables = _restore(template_variables, variables)
     return Artifact(meta["model_name"], meta["config"], variables)
 
 

@@ -73,6 +73,7 @@ class InferenceServer:
         host: str = "127.0.0.1",
         port: int = 8501,
         max_batch: int = 8,
+        input_shape: tuple[int, int] | None = None,
         model_info: dict | None = None,
         request_timeout_s: float = 120.0,
         pad_batches: bool = False,
@@ -83,6 +84,7 @@ class InferenceServer:
     ):
         self.apply_fn = apply_fn
         self.max_batch = max_batch
+        self.input_shape = input_shape  # stored only, as emx's
         # After the first request of a group arrives, wait up to this
         # long for the group to fill toward max_batch.
         self.batch_window_s = batch_window_s

@@ -13,7 +13,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Callable, TypeVar
+from typing import Any, Callable, Iterator, TypeVar
 
 T = TypeVar("T")
 
@@ -120,3 +120,12 @@ def watch_file(
         return load_overrides(path)
 
     return poll
+
+
+def iter_shards(items: list[T], shard_index: int,
+                shard_count: int) -> Iterator[T]:
+    """Deterministic round-robin sharding of a work list across hosts:
+    the items whose position is `shard_index` modulo `shard_count`."""
+    for i, item in enumerate(items):
+        if i % shard_count == shard_index:
+            yield item

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import subprocess
 
@@ -16,6 +17,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
                            "run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (a result that
+    repeats on one card and library); the previous setting after it."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
 
 
 def card_name_and_power() -> str:

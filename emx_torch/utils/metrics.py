@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import time
 from typing import Any
 
@@ -83,4 +84,21 @@ def read_jsonl(path: str) -> list[dict[str, Any]]:
             line = line.strip()
             if line:
                 out.append(json.loads(line))
+    return out
+
+
+def read_loss_log(path: str, key: str = "loss") -> list[float]:
+    """Parse a plain-text log back into a loss series: the number after
+    each `<key>:` (the analysis workflow of reference
+    misc_py/read_loss_log.py)."""
+    pat = re.compile(rf"{key}:\s*([-+0-9.eE]+)")
+    out: list[float] = []
+    with open(path) as f:
+        for line in f:
+            m = pat.search(line)
+            if m:
+                try:
+                    out.append(float(m.group(1)))
+                except ValueError:
+                    pass
     return out

@@ -561,3 +561,54 @@ def test_reconstruct_on_the_card(cuda):
     r_cpu = weak_phase_residual(ints, dfs, cfg)
     r_gpu = weak_phase_residual(ints.to(cuda), dfs.to(cuda), cfg)
     assert float(r_gpu) == pytest.approx(float(r_cpu), rel=1e-4, abs=1e-7)
+
+
+@pytest.mark.gpu
+def test_zoo_step_on_the_card(cuda):
+    """Two steps of the zoo ladder's manifold family (both optimizers) on
+    the card against the same steps on the CPU, from one initialisation
+    and one batch: the recon losses within 1e-3 relative, every
+    parameter within 2 lr (Adam's widest move, where a gradient is
+    rounding noise: the conv biases ahead of an instance norm) and all
+    but 0.1% within 1e-4 (float32; cuDNN's algorithms round otherwise)."""
+    from emx_torch.bench import zoo_ladder as zl
+    from emx_torch.nn.manifold import SharedManifoldTranslator
+
+    torch.backends.cudnn.allow_tf32 = False
+    a = torch.from_numpy(synthetic_micrographs(4, 32, seed=5))
+    b = zl.to_domain_b(torch.from_numpy(synthetic_micrographs(4, 32,
+                                                              seed=6)))
+    results = []
+    for dev in ("cpu", cuda):
+        model = zl._init(SharedManifoldTranslator(zl.manifold_config(0.25),
+                                                  device="cpu"), 0, dev)
+        main = [p for n, p in model.named_parameters()
+                if not n.startswith("confuser.")]
+        m_opt = torch.optim.Adam(main, lr=2e-4)
+        c_opt = torch.optim.Adam(model.confuser.parameters(), lr=2e-4)
+        losses = [float(zl.manifold_step(model, m_opt, c_opt, a.to(dev),
+                                         b.to(dev))) for _ in range(2)]
+        results.append((losses, [p.detach().cpu()
+                                 for p in model.parameters()]))
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = results
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-3)
+    d = torch.cat([(g - c).abs().reshape(-1) for c, g in zip(p_cpu, p_gpu)])
+    assert float(d.max()) <= 2 * 2 * 2e-4 + 1e-6
+    assert int((d > 1e-4).sum()) <= d.numel() // 1000, int((d > 1e-4).sum())
+
+
+@pytest.mark.gpu
+def test_style_gate_on_the_card(cuda, tmp_path):
+    """The style artifact cut to 100 steps on the card and on the CPU,
+    from the committed inputs: gram_gap_closed and content_correlation
+    within 0.005 of each other (float32, TF32 off; the phase holds the
+    uncut run to the record within 0.02)."""
+    from emx_torch.bench import style_artifact
+
+    torch.backends.cudnn.allow_tf32 = False
+    got = [style_artifact.main(str(tmp_path / dev), 128, 100, 2000.0,
+                               device=dev)
+           for dev in ("cpu", "cuda")]
+    assert got[1]["seconds"] is not None and got[0]["seconds"] is None
+    for k in ("gram_gap_closed_exact", "content_correlation_exact"):
+        assert abs(got[1][k] - got[0][k]) <= 0.005, (k, got)

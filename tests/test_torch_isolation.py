@@ -74,8 +74,12 @@ print(len(names))
     "bench/gan_quality.py", "bench/gan_demo.py", "physics/ctf.py",
     "physics/propagate.py", "recon/__init__.py", "recon/ewrec.py",
     "recon/align.py", "recon/fit.py", "bench/ewrec_bench.py",
-    "bench/ewrec_diagnosis.py", "serve/artifact.py"])
+    "bench/ewrec_diagnosis.py", "serve/artifact.py", "serve/tf_import.py",
+    "analysis/stats.py", "analysis/pearson.py", "analysis/optim_demo.py",
+    "nn/autoencoder.py", "nn/latent.py", "nn/kernels.py", "nn/fractal.py",
+    "nn/profiles.py", "nn/vaegan.py", "nn/manifold.py", "nn/style.py",
+    "bench/zoo_ladder.py", "bench/style_artifact.py"])
 def test_recipe_modules_are_checked(name):
-    """The recipe's, the file path's, the GAN's and EWREC's modules and
-    the CLI are among the files checked."""
+    """The recipe's, the file path's, the GAN's, EWREC's and the model
+    zoo's modules and the CLI are among the files checked."""
     assert ROOT / "emx_torch" / name in PORT_FILES

@@ -582,6 +582,8 @@ def test_cli_serve_flags():
     ("gan-quality", []),
     ("gan-demo", ["runs/d", "200"]),
     ("gan-demo", []),
+    ("zoo-ladder", ["runs/z", "300", "0.5"]),
+    ("zoo-ladder", []),
 ])
 def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     """Each implemented command calls its tool with the arguments emx's
@@ -591,17 +593,19 @@ def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     import emx.bench.qat_finetune as eq
     import emx.bench.quality_run as er
     import emx.bench.quant_check as ec
-    from emx_torch.bench import gan_demo, gan_quality
+    import emx.bench.zoo_ladder as ez
+    from emx_torch.bench import gan_demo, gan_quality, zoo_ladder
     emx_calls, port_calls = [], []
     for mod, names in ((er, ["main"]), (ec, ["main"]),
                        (eq, ["main", "head_distill"]), (egq, ["main"]),
-                       (egd, ["main"])):
+                       (egd, ["main"]), (ez, ["main"])):
         for n in names:
             monkeypatch.setattr(mod, n, lambda *a, _n=n, **k:
                                 emx_calls.append((_n, a, k)))
     for mod, names in ((quality_run, ["main"]), (quant_check, ["main"]),
                        (qat_finetune, ["main", "head_distill"]),
-                       (gan_quality, ["main"]), (gan_demo, ["main"])):
+                       (gan_quality, ["main"]), (gan_demo, ["main"]),
+                       (zoo_ladder, ["main"])):
         for n in names:
             monkeypatch.setattr(mod, n, lambda *a, _n=n, **k:
                                 port_calls.append((_n, a, k)))
@@ -617,10 +621,12 @@ def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     set(emx_cli.COMMANDS) - {"serve", "quality", "quant-check",
                              "qat-finetune", "train-denoiser", "harvest",
                              "bench-train", "train-infilling", "ewrec",
-                             "gan-demo", "gan-quality"}))
+                             "gan-demo", "gan-quality", "zoo-ladder"}))
 def test_cli_unported_commands_raise(command):
+    """dqn-autofocus is what is left: scope and RL, Queue 1 item 7."""
     assert set(cli.COMMANDS) == set(emx_cli.COMMANDS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 7"):
         cli.main([command])
 
 

@@ -262,6 +262,22 @@ def test_affine_warp_and_its_gradient_match_emx():
     np.testing.assert_allclose(tt.grad.numpy(), np.asarray(gt), rtol=1e-3)
 
 
+@pytest.mark.parametrize("a, t", [
+    ([[1.0, 0.1], [0.0, 1.0]], [0.3, -0.7]),
+    # Every coordinate on .5 (+1.5 and -2.5 px): lax.round's halves go
+    # away from zero, where torch.round's go to even.
+    ([[1.0, 0.0], [0.0, 1.0]], [1.5, -2.5]),
+], ids=["shear", "halves"])
+def test_affine_warp_order_0_matches_emx(a, t):
+    """map_coordinates(order=0, mode="nearest"): equal on every pixel."""
+    img = np.random.default_rng(4).random((16, 16)).astype(np.float32)
+    a, t = np.asarray(a, np.float32), np.asarray(t, np.float32)
+    ref = np.asarray(flax_align.affine_warp(
+        jnp.asarray(img), jnp.asarray(a), jnp.asarray(t), order=0))
+    got = affine_warp(_t(img), _t(a), _t(t), order=0).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_register_affine_matches_emx():
     base = _blurred(5, 48)
     th = 0.05
