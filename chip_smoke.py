@@ -169,11 +169,39 @@ non-zero and prints no result):
              and content_correlation within +-0.02 of docs/runs/style_r3/
              quality.json and within +-0.01 of emx's own CPU run recorded
              in the inputs file; seconds and steps/s.
- 22. the kernels line (JSON), then the last line
+ 22. scope   the live-microscope path. emx_torch.bench.dqn_vec.main on
+             the committed policy docs/runs/dqn_autofocus_v2/policy.npz
+             uncut: the six serial rows (50 episodes each), traced. Every
+             DQN step's Q values within 1e-5 of the policy's float64
+             numpy forward (dqn.reference_q_values) on the same
+             observation, no greedy action off it but at a near-tie; the
+             card's noiseless frames off focus within 2e-5 of the CPU's;
+             each row held episode by episode to emx's trace of the
+             record's run (docs/runs/port_dqn_eval/emx_trace.json) while
+             the frames' digests agree (dqn_vec.compare_traces: no
+             fault); each row's metrics within DQN_ROW_TOL of the span of
+             the record and of emx's 200 runs with its propagation
+             changed in the last bits (docs/runs/port_dqn_eval/
+             emx_nudged_rows.json); the random row's solve rate, steps,
+             return and distance, which no frame moves, equal to
+             quality.json's; the record's four
+             true-target comparisons, dqn_true_target's solve rate
+             within +-0.2 and the vec greedy evaluation
+             (solve rate >= 0.95, mean final distance <= 0.10). Then the
+             vec trainer at dqn_vec's configuration for 300 iterations
+             of 128 lanes: env steps/s, gradient steps/s, finite losses,
+             and a profiled window (idle share, kernels an iteration);
+             `emx_torch.cli.main(["dqn-autofocus", ...])` for 3 episodes;
+             the fringe classifier on the simulator's labels (24 a class
+             at 32^2, 300 steps): accuracy above 0.8, the loss falling.
+ 23. sweep   emx_torch.bench.sweep.measure on base16 (the bf16
+             group-norm Denoiser, batch 16 at 512x512) for 5 launches:
+             img/s, ms a launch.
+ 24. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
-     No GAN, EWREC, zoo or style function reaches K1 or K2: emx computes
-     them with XLA convolutions and jnp.fft, the port with cuDNN and
-     cuFFT; the line's phase counts for zoo and style say so (0).
+     No GAN, EWREC, zoo, style, scope or sweep function reaches K1 or
+     K2: emx computes them with XLA convolutions and jnp.fft, the port
+     with cuDNN and cuFFT; the line's phase counts for them say so (0).
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
 model from a seed. The phases are functions of (device, config), so the
@@ -182,6 +210,7 @@ CPU tests rehearse the ones that need no kernel on tiny configs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -2391,6 +2420,353 @@ def phase_style(device: torch.device, cfg: StyleSmokeConfig) -> dict:
     return got
 
 
+DQN_POLICY = "docs/runs/dqn_autofocus_v2/policy.npz"
+DQN_RECORD = "docs/runs/dqn_autofocus_v2/quality.json"
+DQN_TRACE = "docs/runs/port_dqn_eval/emx_trace.json"
+DQN_NUDGED = "docs/runs/port_dqn_eval/emx_nudged_rows.json"
+# Each serial row's metrics: the tolerances fixed before the first card
+# run, around the span of emx's own runs (the record's and 200 with the
+# propagation changed in its last bits; PERF.md §6).
+DQN_ROW_TOL = {"solve_rate": 0.04, "true_solve_rate": 0.04,
+               "mean_steps": 0.3, "mean_return": 0.5,
+               "mean_final_distance": 0.25, "mean_final_true_distance": 0.25}
+# The random row's metrics that no frame moves: its shifts are its own
+# numpy draws, and its distance to the scan's target is the start's
+# offset (the env's draw after the dqn row's 50 resets) plus the shifts.
+# Equal to the record's.
+DQN_FRAME_FREE = ("solve_rate", "mean_steps", "mean_return",
+                  "mean_final_distance")
+# The record's true-target comparisons, each true there.
+DQN_BEATS = ("beats_random_true_distance", "beats_hillclimb_true_distance",
+             "beats_random_gt", "beats_hillclimb_gt")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScopeSmokeConfig:
+    # The committed policy's evaluation uncut: 50 episodes a serial row
+    # (the record's), the vec greedy evaluation at 128 lanes.
+    n_eval: int = 50
+    vec_solve_min: float = 0.95     # record 1.0
+    vec_dist_max: float = 0.10      # record 0.072
+    gt_solve_tol: float = 0.2       # dqn_true_target's solve rate, 0.64
+    # The noiseless frames on the card against the CPU's at 6 planes off
+    # focus (the Q values are held to dqn_vec.Q_TOL).
+    frame_tol: float = 2e-5
+    # The vec trainer at dqn_vec's configuration, cut to train_iters
+    # iterations of vec_batch lanes (the first 5000 transitions fill the
+    # buffer); profile_iters more under the profiler.
+    vec_batch: int = 128
+    train_iters: int = 300
+    train_warmup: int = 5000
+    profile_iters: int = 4
+    # `dqn-autofocus` through the CLI: the serial trainer cut to a few
+    # episodes, then its 50-episode evaluation.
+    cli_episodes: int = 3
+    # emx's tests/test_aux.py recipe: 24 frames a class at 32^2, 300 steps.
+    classifier_per_class: int = 24
+    classifier_size: int = 32
+    classifier_steps: int = 300
+
+
+def dqn_rows_against_record(rows: dict, record: dict,
+                            nudged: list[dict]) -> list[dict]:
+    """Each serial row's metric beside the span of emx's runs (`record`
+    and the `nudged` rows), and whether it lies within DQN_ROW_TOL of
+    that span."""
+    out = []
+    for row, metrics in record.items():
+        for k, tol in DQN_ROW_TOL.items():
+            if k in metrics:
+                emx = [metrics[k], *(n[row][k] for n in nudged)]
+                port = rows[row][k]
+                out.append({"row": row, "metric": k, "port": port,
+                            "record": metrics[k],
+                            "emx": [min(emx), max(emx)],
+                            "within": min(emx) - tol - 1e-9 <= port
+                            <= max(emx) + tol + 1e-9})
+    return out
+
+
+def q_against_reference(trace: dict) -> dict:
+    """The DQN rows' Q values (the port's module, as the policy read
+    them) against dqn.reference_q_values on the same observations: the
+    largest difference, and the greedy actions that differ where the
+    reference's two best values are more than 2 dqn_vec.Q_TOL apart."""
+    from emx_torch.bench.dqn_vec import Q_TOL
+    from emx_torch.scope.dqn import flat_flax_params, reference_q_values
+
+    steps = [(q, o) for row in ("dqn", "dqn_true_target")
+             for ep in trace[row] for q, o in zip(ep["q"], ep["obs"])]
+    q = np.array([s[0] for s in steps])
+    ref = reference_q_values(flat_flax_params(DQN_POLICY),
+                             np.stack([s[1] for s in steps]))
+    top = np.sort(ref, 1)
+    flips = (q.argmax(1) != ref.argmax(1)) & (top[:, -1] - top[:, -2]
+                                             > 2 * Q_TOL)
+    return {"steps": len(steps), "max_diff": float(np.abs(q - ref).max()),
+            "flips": int(flips.sum())}
+
+
+def frames_against_cpu(device: torch.device) -> float:
+    """The simulator's noiseless frames (make_env's microscope, dose 0)
+    on `device` against the CPU's on both sides of focus: the largest
+    difference of the [0, 1] frames. Not at focus: a pure phase object
+    is flat there, and the rescale to [0, 1] magnifies the last bits."""
+    from emx_torch.scope.sim import SimulatedMicroscope
+
+    scopes = [SimulatedMicroscope(image_size=48, dose=0, seed=123,
+                                  device=d) for d in (device, "cpu")]
+    worst = 0.0
+    for z in (-3.0, -1.5, -0.75, 0.75, 1.5, 3.0):
+        for sc in scopes:
+            sc.z = float(z)
+        a, b = (sc.acquire() for sc in scopes)
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def scope_eval(device: torch.device, cfg: ScopeSmokeConfig,
+               failures: list) -> dict:
+    """dqn_vec.main on the committed policy, the six serial rows traced:
+    every DQN step's Q values against the float64 forward; the noiseless
+    frames against the CPU's; each row against emx's trace while the
+    frames agree (no fault); each row's metrics against the span of
+    emx's runs; the random row's frame-free metrics, the record's
+    true-target comparisons and dqn_true_target's solve rate against
+    the record; the vec greedy evaluation."""
+    from emx_torch.bench import dqn_vec
+
+    with open(DQN_RECORD) as f:
+        record = json.load(f)
+    with open(DQN_TRACE) as f:
+        ref = {k: v[:cfg.n_eval] for k, v in json.load(f).items()}
+    trace: dict = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = dqn_vec.main(tmp, 0, cfg.vec_batch, device=device,
+                           policy_npz=DQN_POLICY, trace=trace,
+                           n_eval=cfg.n_eval)
+        with open(os.path.join(tmp, "quality.json")) as f:
+            rows = json.load(f)["results"]
+    seconds = time.perf_counter() - t0
+    q = q_against_reference(trace)
+    log("scope", f"Q values of {q['steps']} DQN steps against the float64 "
+        f"forward: largest difference {q['max_diff']:.3g}, {q['flips']} "
+        "greedy actions off it")
+    _gate(failures, q["max_diff"] <= dqn_vec.Q_TOL and q["flips"] == 0,
+          f"Q values against the float64 forward: {q}")
+    frames = frames_against_cpu(device)
+    log("scope", f"noiseless frames against the CPU's: largest difference "
+        f"{frames:.3g}")
+    _gate(failures, frames <= cfg.frame_tol,
+          f"noiseless frames {frames:.3g} off the CPU's")
+    compared = dqn_vec.compare_traces(trace, ref)
+    for row, c in compared.items():
+        log("scope", f"{row}: {json.dumps(rows[row])}; against emx's trace "
+            f"{json.dumps(c)}")
+        _gate(failures, c["fault"] is None,
+              f"{row} leaves emx's trace on the same frames: {c}")
+    table = []
+    if cfg.n_eval == record["eval_episodes"]:
+        with open(DQN_NUDGED) as f:
+            nudged = list(json.load(f)["rows"].values())
+        table = dqn_rows_against_record(rows, record["results"], nudged)
+        outside = [t for t in table if not t["within"]]
+        log("scope", f"rows against emx's {1 + len(nudged)} runs: "
+            f"{len(table) - len(outside)} of {len(table)} metrics within "
+            "the tolerances of their span")
+        _gate(failures, not outside,
+              f"row metrics outside emx's span: {json.dumps(outside)}")
+        rec_random = record["results"]["random"]
+        for k in DQN_FRAME_FREE:
+            _gate(failures, rows["random"][k] == rec_random[k],
+                  f"random row {k} {rows['random'][k]} where the record "
+                  f"has {rec_random[k]}")
+        for k in DQN_BEATS:
+            _gate(failures, got[k] == record[k],
+                  f"{k} {got[k]} where the record has {record[k]}")
+        gt = rows["dqn_true_target"]["solve_rate"]
+        _gate(failures, abs(gt - record["gt_solve_rate"]) <= cfg.gt_solve_tol,
+              f"dqn_true_target solve rate {gt} against the record's "
+              f"{record['gt_solve_rate']} +-{cfg.gt_solve_tol}")
+    vec = got["vec_greedy_eval"]
+    log("scope", f"vec greedy evaluation {json.dumps(vec)} (record "
+        f"{json.dumps(record['vec_greedy_eval'])}); evaluation "
+        f"{seconds:.1f} s")
+    _gate(failures, vec["solve_rate"] >= cfg.vec_solve_min
+          and vec["mean_final_distance"] <= cfg.vec_dist_max,
+          f"vec greedy evaluation {vec}")
+    return {"rows": rows, "compared": compared, "table": table, "q": q,
+            "frames_max_diff": frames, "vec_greedy_eval": vec,
+            "seconds": seconds}
+
+
+def scope_train(device: torch.device, cfg: ScopeSmokeConfig,
+                failures: list) -> dict:
+    """The vec trainer for train_iters iterations: env steps/s over the
+    run, gradient steps/s after the warm-up, finite losses; on the card a
+    profiled window of iterations: device busy ms, idle share, kernels an
+    iteration."""
+    from emx_torch.bench import dqn_vec
+
+    env, agent = dqn_vec.make_trainer(cfg.train_iters * cfg.vec_batch,
+                                      cfg.vec_batch, device,
+                                      warmup=cfg.train_warmup)
+    state, obs = env.reset(seed=0)
+    losses = []
+    _sync(device)
+    t0 = time.perf_counter()
+    t_first_grad = steps_before = None
+    for _ in range(cfg.train_iters):
+        state, obs, done, info, loss = dqn_vec.train_iteration(
+            env, agent, state, obs)
+        losses.append(loss)
+        if t_first_grad is None and agent.train_count:
+            _sync(device)
+            t_first_grad, steps_before = time.perf_counter(), \
+                agent.train_count
+    _sync(device)
+    t1 = time.perf_counter()
+    out = {"env_steps": agent.step_count, "gradient_steps": agent.train_count,
+           "seconds": t1 - t0, "env_steps_per_s": agent.step_count / (t1 - t0)}
+    if t_first_grad is not None and agent.train_count > steps_before:
+        out["gradient_steps_per_s"] = ((agent.train_count - steps_before)
+                                       / (t1 - t_first_grad))
+    trained = [v for v in losses if v is not None]
+    _gate(failures, trained and all(np.isfinite(trained)),
+          f"vec training losses {trained[:3]}...{trained[-3:]}")
+    _gate(failures, agent.train_count == 2 * len(trained),
+          f"{agent.train_count} gradient steps for {len(trained)} iterations")
+    if device.type == "cuda":
+        from emx_torch.bench.forward_profile import profile_forward
+
+        box = {"state": state, "obs": obs}
+
+        def step(_unused):
+            box["state"], box["obs"], *rest = dqn_vec.train_iteration(
+                env, agent, box["state"], box["obs"])
+
+        prof = profile_forward(step, None, n=cfg.profile_iters)
+        out.update(idle_share=prof["idle_share"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   iteration_ms=prof["wall_ms"],
+                   kernels_per_iteration=prof["kernels_per_forward"],
+                   top_kernels_ms=prof["top_kernels_ms"][:5])
+    rate = (f"{out['env_steps_per_s']:.1f} env steps/s, "
+            f"{out.get('gradient_steps_per_s', float('nan')):.1f} gradient "
+            f"steps/s after the warm-up" if device.type == "cuda"
+            else "no rate (CPU)")
+    log("scope", f"vec training: {cfg.train_iters} iterations of "
+        f"{cfg.vec_batch} lanes, {agent.step_count} env steps, "
+        f"{agent.train_count} gradient steps (batch 256), last loss "
+        f"{trained[-1] if trained else None}; {rate}" + (
+            f"; profiled {cfg.profile_iters} iterations: "
+            f"{out['iteration_ms']:.2f} ms wall, {out['device_busy_ms']:.2f}"
+            f" ms device busy, idle {out['idle_share']:.3f}, "
+            f"{out['kernels_per_iteration']:.0f} kernels; top "
+            f"{out['top_kernels_ms']}" if "idle_share" in out else ""))
+    return out
+
+
+def phase_scope(device: torch.device, cfg: ScopeSmokeConfig) -> dict:
+    """The live-microscope path: the committed policy's evaluation
+    (scope_eval), the vec trainer (scope_train), `dqn-autofocus` through
+    the CLI, and the fringe classifier on the simulator's labels. No K1
+    or K2 launch: the simulator propagates with cuFFT, the vec env draws
+    with torch.poisson (emx's exact jax.random.poisson), the networks
+    are cuDNN's."""
+    from emx_torch.scope.classifier import (collect_fringe_dataset,
+                                            train_fringe_classifier)
+    from emx_torch.scope.sim import SimulatedMicroscope
+
+    before = _launch_counts()
+    failures: list = []
+    t0 = time.perf_counter()
+    evaluated = scope_eval(device, cfg, failures)
+    trained = scope_train(device, cfg, failures)
+    # In this process (the CLI's entry point; a subprocess would add the
+    # ~10 s of a fresh interpreter and CUDA context to the run).
+    from emx_torch import cli as cli_module
+
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        cli_module.main(["dqn-autofocus", tmp, str(cfg.cli_episodes),
+                         f"--device={device.type}"])
+    cli = json.loads(out.getvalue().splitlines()[-1])
+    _gate(failures, cli["train_episodes"] == cfg.cli_episodes
+          and cli["eval_episodes"] == 50
+          and all(np.isfinite(v) for k, v in cli.items()
+                  if k.startswith("dqn_") and isinstance(v, float)),
+          f"dqn-autofocus summary {cli}")
+    log("scope", f"dqn-autofocus ({cfg.cli_episodes} episodes) in "
+        f"{time.perf_counter() - t1:.1f} s: {json.dumps(cli)}")
+    scope = SimulatedMicroscope(image_size=cfg.classifier_size, dose=0,
+                                optimal_z=0.0, device=device)
+    x, y = collect_fringe_dataset(scope, cfg.classifier_per_class, seed=0)
+    t1 = time.perf_counter()
+    res = train_fringe_classifier(x, y, steps=cfg.classifier_steps, seed=0,
+                                  device=device)
+    fit_s = time.perf_counter() - t1
+    _gate(failures, res.accuracy > 0.8 and res.losses[-1] < res.losses[0],
+          f"fringe classifier accuracy {res.accuracy}, loss "
+          f"{res.losses[0]} -> {res.losses[-1]}")
+    log("scope", f"fringe classifier: {len(y)} frames, "
+        f"{cfg.classifier_steps} steps in {fit_s:.2f} s, loss "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}, accuracy "
+        f"{res.accuracy:.3f}")
+    after = _launch_counts()
+    _gate(failures, after == before,
+          f"K1/K2 launches moved {before} -> {after}")
+    card = f" on {card_name_and_power()}" if device.type == "cuda" else ""
+    log("scope", f"phase {time.perf_counter() - t0:.1f} s{card}; K1/K2 "
+        f"launches in the phase: {after[0] - before[0]}/"
+        f"{after[1] - before[1]}")
+    if failures:
+        raise AssertionError("scope: " + "; ".join(failures))
+    return {"eval": evaluated, "train": trained, "cli": cli,
+            "classifier_accuracy": res.accuracy,
+            "launches": (after[0] - before[0], after[1] - before[1])}
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSmokeConfig:
+    # emx_torch.bench.sweep's base16 (bf16 group-norm Denoiser, batch 16
+    # of 512x512) for a few launches; `scale` < 1 narrows it (CPU).
+    variant: str = "base16"
+    n_iters: int = 5
+    size: int = 512
+    batch: int | None = None
+    scale: float = 1.0
+
+
+def phase_sweep(device: torch.device, cfg: SweepSmokeConfig) -> dict:
+    """sweep.measure on one variant: img/s and ms a launch (one
+    synchronise after the last launch), finite forwards; no K1 or K2
+    launch (the group-norm Denoiser's blocks normalise before their
+    activation, which K1 does not fuse)."""
+    from emx_torch.bench import sweep
+
+    model_cfg, batch = sweep.variants()[cfg.variant]
+    if cfg.scale != 1.0:
+        model_cfg = model_cfg.scaled(cfg.scale)
+    before = _launch_counts()
+    out = sweep.measure(cfg.variant, model_cfg, cfg.batch or batch,
+                        cfg.n_iters, cfg.size, device)
+    after = _launch_counts()
+    failures: list = []
+    _gate(failures, after == before, f"K1/K2 launches moved {before} -> "
+          f"{after}")
+    _gate(failures, out["img_per_s"] > 0, f"sweep {out}")
+    log("sweep", f"{json.dumps(out)}" + ("" if device.type == "cuda"
+                                         else " (CPU: not a card rate)"))
+    if failures:
+        raise AssertionError("sweep: " + "; ".join(failures))
+    out["launches"] = (after[0] - before[0], after[1] - before[1])
+    return out
+
+
 def kernels_line(kernel_results: list[dict], launches: int,
                  degrade: dict, degrade_launches: int,
                  phase_launches: dict | None = None,
@@ -2468,18 +2844,22 @@ def main() -> None:
     phase_ewrec(device, EwrecSmokeConfig())
     zoo = phase_zoo(device, ZooSmokeConfig())
     style = phase_style(device, StyleSmokeConfig())
-    # The zoo and style phases reach neither kernel: their entries are
-    # the counts read around them (0).
+    scope = phase_scope(device, ScopeSmokeConfig())
+    swept = phase_sweep(device, SweepSmokeConfig())
+    # The zoo, style, scope and sweep phases reach neither kernel: their
+    # entries are the counts read around them (0).
     print(json.dumps(kernels_line(
         kernel_results, served["launches"], degraded, trained_launches,
         {"serve": served["launches"], "deploy": deployed["launches"],
          "decision": decided["launches"], "auto": auto["launches"],
          "qat": qat["k1_launches"], "zoo": zoo["launches"][0],
-         "style": style["launches"][0]},
+         "style": style["launches"][0], "scope": scope["launches"][0],
+         "sweep": swept["launches"][0]},
         {"train": trained_launches, "graph": graphed["launches"],
          "files": files["launches"], "quality": quality["launches"],
          "qat": qat["k2_launches"], "zoo": zoo["launches"][1],
-         "style": style["launches"][1]})), flush=True)
+         "style": style["launches"][1], "scope": scope["launches"][1],
+         "sweep": swept["launches"][1]})), flush=True)
     log("done", f"{time.perf_counter() - t0:.1f} s on {info['smi']}; "
         f"deploy K1 launches {deployed['launches']}")
     print(json.dumps({"ok": True, "device": {

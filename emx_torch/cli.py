@@ -15,9 +15,8 @@ default; cpu runs a command on the CPU).
   python -m emx_torch.cli gan-quality [out_dir] [steps]
   python -m emx_torch.cli gan-demo [out_dir] [steps]
   python -m emx_torch.cli ewrec --stack_dir=<focal-series TIFFs> --out=...
-
-The other commands of emx's raise NotImplementedError naming the
-ROADMAP.md Queue 1 item that ports them.
+  python -m emx_torch.cli zoo-ladder [out_dir] [steps] [scale]
+  python -m emx_torch.cli dqn-autofocus [out_dir] [episodes]
 """
 
 from __future__ import annotations
@@ -367,6 +366,16 @@ def zoo_ladder(argv: list[str]) -> None:
         float(a[2]) if len(a) > 2 else 0.25, device=_device(argv))
 
 
+def dqn_autofocus(argv: list[str]) -> None:
+    """DQN autofocus training + policy evaluation
+    (emx_torch.bench.dqn_run)."""
+    from emx_torch.bench.dqn_run import main as run
+
+    a = _positional(argv)
+    run(a[0] if a else "runs/dqn_autofocus",
+        int(a[1]) if len(a) > 1 else 800, device=_device(argv))
+
+
 def run_ewrec(argv: list[str]) -> None:
     """Exit-wave reconstruction of a focal series of TIFFs (sorted by the
     digits in their names): align to the middle slice, search the
@@ -406,17 +415,7 @@ def run_ewrec(argv: list[str]) -> None:
           "phase.tif", flush=True)
 
 
-def _unported(name: str, item: int):
-    def command(argv: list[str]) -> None:
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md "
-                                  f"Queue 1 item {item})")
-    return command
-
-
-# ROADMAP.md Queue 1 item that ports each command not ported yet.
-_QUEUE_ITEM = {"dqn-autofocus": 7}
 COMMANDS = {
-    **{name: _unported(name, item) for name, item in _QUEUE_ITEM.items()},
     "train-denoiser": train_denoiser,
     "harvest": harvest,
     "bench-train": bench_train,
@@ -429,6 +428,7 @@ COMMANDS = {
     "gan-quality": gan_quality,
     "ewrec": run_ewrec,
     "zoo-ladder": zoo_ladder,
+    "dqn-autofocus": dqn_autofocus,
 }
 
 

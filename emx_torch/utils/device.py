@@ -31,6 +31,22 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = was
 
 
+@contextlib.contextmanager
+def full_float32():
+    """float32 convolutions and matrix products without TF32 inside the
+    block (cuDNN's convolutions default to TF32 on the card); the
+    previous settings after it."""
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = was
+
+
 def card_name_and_power() -> str:
     """nvidia-smi's name and power limit of the first card, as
     `--query-gpu=name,power.limit --format=csv,noheader` gives them."""

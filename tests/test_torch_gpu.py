@@ -612,3 +612,45 @@ def test_style_gate_on_the_card(cuda, tmp_path):
     assert got[1]["seconds"] is not None and got[0]["seconds"] is None
     for k in ("gram_gap_closed_exact", "content_correlation_exact"):
         assert abs(got[1][k] - got[0][k]) <= 0.005, (k, got)
+
+
+@pytest.mark.gpu
+def test_scope_on_the_card(cuda):
+    """The serial simulator and the vec env on the card against the same
+    calls on the CPU (noiseless, away from focus: cuFFT against the
+    CPU's FFT within 2e-5); the vec env's draws repeat from one seed on
+    the card; the committed policy's Q values within 1e-5 with cuDNN's
+    TF32 left on (q_values computes in full float32 itself)."""
+    from emx_torch.scope.dqn import DQNAgent, DQNConfig, load_policy
+    from emx_torch.scope.sim import SimulatedMicroscope
+    from emx_torch.scope.vec_env import VecFresnelConfig, VecFresnelEnv
+
+    torch.backends.cudnn.allow_tf32 = True      # cuDNN's default
+    frames = []
+    for dev in ("cpu", cuda):
+        s = SimulatedMicroscope(image_size=48, seed=5, dose=0, device=dev)
+        s.x, s.z, s.focus = 13.0, 0.9, 40.0
+        frames.append(s.acquire())
+    np.testing.assert_allclose(frames[1], frames[0], atol=2e-5)
+
+    cfg = VecFresnelConfig(batch=8, dose=0.0)
+    z = torch.tensor([0.3, -0.5, 1.2, -2.0, 0.9, 2.7, -1.1, 0.45])
+    idx = torch.arange(8) * 7
+    got = [VecFresnelEnv(cfg, device=dev).acquire(
+        VecFresnelEnv(cfg, device=dev)._pool[idx.to(dev)], z.to(dev)).cpu()
+        for dev in ("cpu", cuda)]
+    torch.testing.assert_close(got[1], got[0], rtol=0, atol=2e-5)
+    env = VecFresnelEnv(VecFresnelConfig(batch=8), device=cuda)
+    (s1, o1), (s2, o2) = env.reset(seed=1), env.reset(seed=1)
+    torch.testing.assert_close(o1, o2, rtol=0, atol=0)
+    torch.testing.assert_close(env.step(s1, z)[1], env.step(s2, z)[1],
+                               rtol=0, atol=0)
+
+    obs = torch.from_numpy(np.random.default_rng(0).random(
+        (4, 48, 48, 3), np.float32))
+    q = [load_policy(DQNAgent((48, 48, 3), DQNConfig(features=(32, 64),
+                                                     buffer_size=8),
+                              device=dev),
+                     "docs/runs/dqn_autofocus_v2/policy.npz").q_values(
+        obs.to(dev)).cpu() for dev in ("cpu", cuda)]
+    torch.testing.assert_close(q[1], q[0], rtol=0, atol=1e-5)

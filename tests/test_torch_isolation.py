@@ -13,7 +13,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "ml_dtypes", "msgpack", "emx")
 PORT_FILES = sorted((ROOT / "emx_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+    ROOT / "scripts" / "port_scope_drive.py",
+    ROOT / "scripts" / "port_dqn_spread.py"]
 
 
 def _imported_names(tree: ast.AST):
@@ -78,8 +80,13 @@ print(len(names))
     "analysis/stats.py", "analysis/pearson.py", "analysis/optim_demo.py",
     "nn/autoencoder.py", "nn/latent.py", "nn/kernels.py", "nn/fractal.py",
     "nn/profiles.py", "nn/vaegan.py", "nn/manifold.py", "nn/style.py",
-    "bench/zoo_ladder.py", "bench/style_artifact.py"])
+    "bench/zoo_ladder.py", "bench/style_artifact.py", "scope/__init__.py",
+    "scope/protocol.py", "scope/sim.py", "scope/env.py", "scope/dqn.py",
+    "scope/vec_env.py", "scope/classifier.py", "scope/demo.py",
+    "bench/dqn_run.py", "bench/dqn_vec.py", "bench/sweep.py", "data/cif.py",
+    "data/misc_files.py"])
 def test_recipe_modules_are_checked(name):
-    """The recipe's, the file path's, the GAN's, EWREC's and the model
-    zoo's modules and the CLI are among the files checked."""
+    """The recipe's, the file path's, the GAN's, EWREC's, the model zoo's
+    and the scope's modules, the tools and the CLI are among the files
+    checked."""
     assert ROOT / "emx_torch" / name in PORT_FILES

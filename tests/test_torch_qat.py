@@ -584,6 +584,8 @@ def test_cli_serve_flags():
     ("gan-demo", []),
     ("zoo-ladder", ["runs/z", "300", "0.5"]),
     ("zoo-ladder", []),
+    ("dqn-autofocus", ["runs/a", "5"]),
+    ("dqn-autofocus", []),
 ])
 def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     """Each implemented command calls its tool with the arguments emx's
@@ -593,19 +595,20 @@ def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     import emx.bench.qat_finetune as eq
     import emx.bench.quality_run as er
     import emx.bench.quant_check as ec
+    import emx.bench.dqn_run as edr
     import emx.bench.zoo_ladder as ez
-    from emx_torch.bench import gan_demo, gan_quality, zoo_ladder
+    from emx_torch.bench import dqn_run, gan_demo, gan_quality, zoo_ladder
     emx_calls, port_calls = [], []
     for mod, names in ((er, ["main"]), (ec, ["main"]),
                        (eq, ["main", "head_distill"]), (egq, ["main"]),
-                       (egd, ["main"]), (ez, ["main"])):
+                       (egd, ["main"]), (ez, ["main"]), (edr, ["main"])):
         for n in names:
             monkeypatch.setattr(mod, n, lambda *a, _n=n, **k:
                                 emx_calls.append((_n, a, k)))
     for mod, names in ((quality_run, ["main"]), (quant_check, ["main"]),
                        (qat_finetune, ["main", "head_distill"]),
                        (gan_quality, ["main"]), (gan_demo, ["main"]),
-                       (zoo_ladder, ["main"])):
+                       (zoo_ladder, ["main"]), (dqn_run, ["main"])):
         for n in names:
             monkeypatch.setattr(mod, n, lambda *a, _n=n, **k:
                                 port_calls.append((_n, a, k)))
@@ -617,17 +620,23 @@ def test_cli_commands_pass_emx_arguments(monkeypatch, command, argv):
     assert pk == {**ek, "device": "cpu"}
 
 
-@pytest.mark.parametrize("command", sorted(
-    set(emx_cli.COMMANDS) - {"serve", "quality", "quant-check",
-                             "qat-finetune", "train-denoiser", "harvest",
-                             "bench-train", "train-infilling", "ewrec",
-                             "gan-demo", "gan-quality", "zoo-ladder"}))
+@pytest.mark.parametrize("command", ["dqn-autofocus"])
 def test_cli_unported_commands_raise(command):
-    """dqn-autofocus is what is left: scope and RL, Queue 1 item 7."""
+    """No command is left unported: dqn-autofocus, the last to raise
+    NotImplementedError (scope and RL, Queue 1 item 7), runs the port's
+    tool, and the port has emx's commands."""
     assert set(cli.COMMANDS) == set(emx_cli.COMMANDS)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 7"):
-        cli.main([command])
+    assert "_QUEUE_ITEM" not in vars(cli)
+    from emx_torch.bench import dqn_run
+
+    calls = []
+    orig = dqn_run.main
+    dqn_run.main = lambda *a, **k: calls.append((a, k))
+    try:
+        cli.main([command, "runs/x", "3", "--device=cpu"])
+    finally:
+        dqn_run.main = orig
+    assert calls == [(("runs/x", 3), {"device": "cpu"})]
 
 
 def test_cli_usage():

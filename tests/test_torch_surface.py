@@ -1,8 +1,7 @@
 """The port's public surface against emx's: each ported package's
 `__init__` exports every name of emx's `__all__` (the port may add
-names of its own), and the keywords emx's callers pass exist. Packages
-whose modules are not all ported yet (emx.scope, emx.parallel) are left
-out until they land."""
+names of its own), and the keywords emx's callers pass exist. emx.parallel,
+whose modules are not ported yet, is left out until it lands."""
 
 import importlib
 import inspect
@@ -11,7 +10,7 @@ import numpy as np
 import pytest
 
 PACKAGES = ("analysis", "data", "io", "nn", "ops", "physics", "recon",
-            "serve", "train", "utils")
+            "scope", "serve", "train", "utils")
 
 
 @pytest.mark.parametrize("package", PACKAGES)
