@@ -197,11 +197,31 @@ non-zero and prints no result):
  23. sweep   emx_torch.bench.sweep.measure on base16 (the bf16
              group-norm Denoiser, batch 16 at 512x512) for 5 launches:
              img/s, ms a launch.
- 24. the kernels line (JSON), then the last line
+ 24. parallel emx_torch.parallel over a one-rank NCCL group
+             (initialize() at a free local port; one all_reduce): the
+             graph phase's flagship config, 6 eager steps under
+             make_mesh_for_batch(16) against 6 without a mesh (every loss
+             and the whole state equal; one K2 launch a step; step ms of
+             both), then under the mesh one replay of a CUDA graph of 8
+             steps against 8 eager steps (equal); K2 at the training
+             batch with image_offset 3 and 8 on rows [k:], equal to the
+             whole launch's rows and to the plain version, eagerly and
+             captured; one 4096x4096 micrograph (smooth_field at dose 100)
+             through spatial_apply with the bundle's K1-fused int8 graph
+             on a spatial mesh of 1 (halo max(80, halo_grid()) rounded to
+             the grid), against tiled_apply (512/80) and the full-image
+             pass: emx's rule err_halo <= max(2 err_tiled, 5e-3), six K1
+             launches, K1 held at the six blocks' shapes there; seconds
+             and peak GiB; halo_denoise of the bundle's float Denoiser
+             at 2048x2048 to the same rule; dryrun_multichip(1) in the
+             group.
+ 25. the kernels line (JSON), then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
      No GAN, EWREC, zoo, style, scope or sweep function reaches K1 or
      K2: emx computes them with XLA convolutions and jnp.fft, the port
      with cuDNN and cuFFT; the line's phase counts for them say so (0).
+     The parallel phase's counts are the meshed steps' and the replay's
+     K2 launches and the halo forward's K1 launches.
 
 Inputs are made from fixed seeds with numpy; the weights of the trained
 model from a seed. The phases are functions of (device, config), so the
@@ -2767,6 +2787,378 @@ def phase_sweep(device: torch.device, cfg: SweepSmokeConfig) -> dict:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class ParallelSmokeConfig:
+    """emx_torch.parallel at world size 1 over a real process group: the
+    data-parallel trainer at the graph phase's flagship config, K2's image
+    offset, halo serving of one big micrograph and the dry run."""
+    model: DenoiserConfig = FLAGSHIP_TRAIN
+    n_images: int = 32
+    size: int = 512
+    batch: int = 16
+    steps: int = 6
+    k: int = 8
+    learning_rate: float = 1e-3
+    seed: int = 0
+    pre_steps: int = 1
+    # K2 launches per train step (0 where no kernel runs).
+    k2_per_step: int = 1
+    # K2's image offsets checked at the training batch.
+    offsets: tuple[int, ...] = (3, 8)
+    bundle: str = SmokeConfig.bundle
+    fused_rows: int = 32
+    big: int = 4096          # the int8 graph's micrograph side
+    float_big: int = 2048    # the float Denoiser's
+    dose: float = 100.0      # a training dose (25 + 75 Exp(1) has mean 100)
+    tile: int = 512
+    overlap: int = 80
+    tile_batch: int = 8
+    # Least K1 launches per forward of the fused graph (0 where none
+    # runs): the six body-resolution blocks; on a big image the encoder's
+    # blocks qualify too (emx's min_pixels 16384).
+    min_launches_per_forward: int = K1_PER_FORWARD
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _halo_rule(name: str, out, tiled, full, failures: list) -> dict:
+    """emx's rule (tests/test_parallel_ops.py:161-164): the halo-parallel
+    output's mean error against the full-image pass at most twice the
+    tiled one's, or 5e-3."""
+    err_halo = float((out - full).abs().mean())
+    err_tiled = float((tiled - full).abs().mean())
+    _gate(failures, out.shape == full.shape
+          and bool(torch.isfinite(out).all()), f"{name}: shape "
+          f"{tuple(out.shape)} or non-finite output")
+    _gate(failures, err_halo <= max(2 * err_tiled, 5e-3),
+          f"{name}: halo error {err_halo:.3e} against tiled {err_tiled:.3e}")
+    return {"err_halo": err_halo, "err_tiled": err_tiled}
+
+
+@contextlib.contextmanager
+def k1_checked(checks: list):
+    """Inside the block the fused graph's fused_sepconv launches the
+    kernel and holds it against its plain version on the same inputs
+    (phase_kernel's tolerance), appending one record per call to
+    `checks`."""
+    import emx_torch.serve.fused as fused_mod
+
+    real = fused_mod.fused_sepconv
+
+    def checking(x, dw, dwb, pw, pwb, rows=32):
+        got = real(x, dw, dwb, pw, pwb, rows=rows)
+        ref = sepconv_reference(x, dw, dwb, pw, pwb)
+        g, r = got.float(), ref.float()
+        err = (g - r).abs()
+        b, h, w, c = x.shape
+        checks.append({
+            "name": f"halo{len(checks)}", "shape": [b, h, w, c, pwb.numel()],
+            "max_abs_err": float(err.max()),
+            "ok": bool((err <= 2 ** -7 * r.abs() + 1e-3).all())
+            and bool(torch.isfinite(g).all())})
+        return got
+
+    fused_mod.fused_sepconv = checking
+    try:
+        yield checks
+    finally:
+        fused_mod.fused_sepconv = real
+
+
+def one_rank_reference(apply_fn, img: torch.Tensor, halo: int,
+                       grid: int) -> torch.Tensor:
+    """What spatial_apply computes on one rank: the image padded to the
+    grid (reflected with the edge row), then by `halo` rows reflected
+    without the edge row at each end, in one pass, cropped."""
+    h = img.shape[0]
+    pad = -(-h // grid) * grid - h
+    x = torch.cat([img, img[h - pad:].flip(0)]) if pad else img
+    x = torch.cat([x[1:halo + 1].flip(0), x, x[-halo - 1:-1].flip(0)])
+    return apply_fn(x)[halo:halo + h]
+
+
+def _one_rank_gate(name: str, out, ref, failures: list) -> float:
+    diff = float((out - ref).abs().max())
+    _gate(failures, diff <= BF16_STEP, f"{name}: spatial_apply departs "
+          f"from the one-rank reference by {diff:.3e}")
+    return diff
+
+
+def parallel_train(device: torch.device, cfg: ParallelSmokeConfig,
+                   mesh, failures: list) -> dict:
+    """From one state, `steps` eager steps without a mesh and under the
+    one-rank mesh (every loss and the whole state equal), then under the
+    mesh one replay of a CUDA graph of `k` steps against `k` eager steps
+    (equal); cudnn deterministic. Returns the K2 launches of the meshed
+    steps and replay, and both step times."""
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        corpus = synthetic_micrographs(cfg.n_images, cfg.size, seed=cfg.seed)
+        model = Denoiser(cfg.model, device=device)
+        tcfg = TrainConfig(learning_rate=cfg.learning_rate,
+                           optimizer="nesterov", log_every=0, seed=cfg.seed)
+        plain = Trainer(model, tcfg, example_fn=denoiser_example)
+        meshed = Trainer(model, tcfg, mesh=mesh, example_fn=denoiser_example)
+        graphed = Trainer(model, dataclasses.replace(
+            tcfg, steps_per_launch=cfg.k), mesh=mesh,
+            example_fn=denoiser_example)
+        state = plain.init()
+        data = DeviceDataset(corpus, PipelineConfig(
+            batch_size=cfg.batch, crop_size=cfg.size, seed=cfg.seed),
+            device=device)
+        plain.fit(state, data, cfg.pre_steps)
+        start = _clone_state(model, state.optimizer)
+        cursor, step0 = data.state_dict(), state.step
+
+        def rewind():
+            _restore_in_place(model, state.optimizer, start)
+            state.step = step0
+            data.load_state_dict(cursor)
+            return iter(data)
+
+        def eager(trainer, n):
+            it = rewind()
+            _sync(device)
+            t0 = time.perf_counter()
+            losses = [trainer.step_fn(state, next(it))[1]["loss"]
+                      for _ in range(n)]
+            _sync(device)
+            ms = 1e3 * (time.perf_counter() - t0) / n
+            return (torch.stack(losses).tolist(),
+                    _clone_state(model, state.optimizer), ms)
+
+        eager(meshed, 1)   # the collectives' first use, not timed
+        loss_a, after_a, ms_a = eager(plain, cfg.steps)
+        k2 = degrade_kernel.fused_poisson_degrade.launches
+        loss_b, after_b, ms_b = eager(meshed, cfg.steps)
+        k2 = degrade_kernel.fused_poisson_degrade.launches - k2
+        mesh_diff = max(max(abs(a - b) for a, b in zip(loss_a, loss_b)),
+                        _max_state_diff(after_a, after_b))
+        loss_e, after_e, _ = eager(meshed, cfg.k)
+        it = rewind()
+        metrics = graphed._launch(state, [next(it) for _ in range(cfg.k)])
+        _sync(device)
+        loss_g = metrics[:, 0].tolist()
+        graph_diff = max(max(abs(a - b) for a, b in zip(loss_e, loss_g)),
+                         _max_state_diff(after_e, _clone_state(
+                             model, state.optimizer)))
+        per_replay = graphed.graph.k2_per_replay
+        log("parallel", f"{cfg.steps} eager steps of batch {cfg.batch} at "
+            f"{cfg.size}x{cfg.size} under the one-rank mesh against none: "
+            f"max |loss or state difference| {mesh_diff:.3e} (must be 0); "
+            f"{ms_b:.2f} ms a step under the mesh, {ms_a:.2f} ms without; "
+            f"K2 launches {k2} (expected {cfg.k2_per_step * cfg.steps})")
+        log("parallel", f"under the mesh, one replay of {cfg.k} steps "
+            f"against {cfg.k} eager steps: max |loss or state difference| "
+            f"{graph_diff:.3e} (must be 0); K2 launches per replay "
+            f"{per_replay}; capture {graphed.graph_stats['capture_s']:.2f} s")
+        _gate(failures, mesh_diff == 0.0, f"the mesh departs from no mesh: "
+              f"{mesh_diff}")
+        _gate(failures, graph_diff == 0.0, f"the graph under the mesh "
+              f"departs from eager: {graph_diff}")
+        _gate(failures, k2 == cfg.k2_per_step * cfg.steps,
+              f"K2 launched {k2} times in {cfg.steps} meshed steps")
+        _gate(failures, per_replay == cfg.k2_per_step * cfg.k,
+              f"K2 launched {per_replay} times in a graph of {cfg.k} steps")
+        return {"mesh_diff": mesh_diff, "graph_diff": graph_diff,
+                "step_ms_mesh": ms_b, "step_ms_plain": ms_a,
+                "launches": k2 + per_replay}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+
+
+def parallel_offsets(device: torch.device, cfg: ParallelSmokeConfig,
+                     failures: list) -> dict:
+    """K2 at the training batch with `image_offset=k` on rows [k:]: equal
+    on every element to rows [k:] of the whole batch's launch and to the
+    plain version, eagerly and (on the card) in a captured graph."""
+    rng = np.random.default_rng(3)
+    imgs_np, scales_np = training_batch(rng, cfg.batch, cfg.size)
+    imgs = torch.from_numpy(imgs_np).to(device)
+    scales = torch.from_numpy(scales_np).to(device)
+    seed = 21
+    whole = fused_poisson_degrade(seed, imgs, scales)
+    worst = 0.0
+    for k in cfg.offsets:
+        rows, sc = imgs[k:].contiguous(), scales[k:].contiguous()
+        got = fused_poisson_degrade(seed, rows, sc, image_offset=k)
+        ref = poisson_degrade_reference(seed, rows, sc, k)
+        diffs = [float((got - whole[k:]).abs().max()),
+                 float((got - ref).abs().max())]
+        if device.type == "cuda":
+            key = degrade_kernel.seed_tensor(seed + 1, device)
+            fused_poisson_degrade(key, rows, sc, image_offset=k)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                cap = fused_poisson_degrade(key, rows, sc, image_offset=k)
+            key.copy_(degrade_kernel.seed_tensor(seed, device))
+            graph.replay()
+            torch.cuda.synchronize()
+            diffs.append(float((cap - ref).abs().max()))
+        worst = max(worst, *diffs)
+        log("parallel", f"K2 at image offset {k} on rows [{k}:] of "
+            f"{tuple(imgs.shape)}: max |difference| against the whole "
+            f"launch's rows, the plain version"
+            + (" and a captured replay" if device.type == "cuda" else "")
+            + f": {', '.join(f'{d:.3e}' for d in diffs)} (must be 0)")
+        _gate(failures, max(diffs) == 0.0, f"K2 at offset {k} departs: "
+              f"{diffs}")
+    return {"max_abs_err": worst}
+
+
+def parallel_halo(device: torch.device, cfg: ParallelSmokeConfig, mesh,
+                  failures: list) -> dict:
+    """One big micrograph through spatial_apply with the bundle's K1-fused
+    int8 graph on the spatial mesh, against tiled_apply (512 tiles, 80
+    overlap) and the full-image pass of the same graph; K1 held at the
+    shapes that pass gives it; then halo_denoise of the bundle's float
+    Denoiser at float_big."""
+    from emx_torch.parallel.halo import halo_denoise, spatial_apply
+    from emx_torch.serve.tiling import TiledApplier, tiled_apply
+
+    rng = np.random.default_rng(11)
+    noisy, _ = degrade(rng, smooth_field(rng, cfg.big, cfg.big), cfg.dose)
+    img = torch.from_numpy(noisy).to(device)
+    graph, _ = bundle_graph(cfg.bundle, device, fused_rows=cfg.fused_rows)
+    mcfg = read_artifact(cfg.bundle)[0]
+    grid = mcfg.halo_grid()
+    halo = -(-max(cfg.overlap, grid) // grid) * grid
+
+    def apply_fn(x):
+        return graph(x[None].float())[0].float()
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    k1 = fused_sepconv.launches
+    out = spatial_apply(apply_fn, img, mesh, halo=halo, grid=grid)
+    _sync(device)
+    k1 = fused_sepconv.launches - k1
+    halo_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else 0.0)
+    tiled = tiled_apply(lambda x: graph(x.float()).float(), img, cfg.tile,
+                        cfg.overlap, cfg.tile_batch)
+    full = apply_fn(img)
+    # The one-rank reference takes the halo forward's shapes: K1 is held
+    # against its plain version on each block's own input there.
+    with k1_checked([]) as k1_checks:
+        one = one_rank_reference(apply_fn, img, halo, grid)
+    _sync(device)
+    res = _halo_rule("int8 graph", out, tiled, full, failures)
+    res["one_rank_diff"] = _one_rank_gate("int8 graph", out, one, failures)
+    expected = len(k1_checks) if device.type == "cuda" else 0
+    log("parallel", f"spatial_apply of the K1-fused int8 graph on one "
+        f"{cfg.big}x{cfg.big} micrograph (dose {cfg.dose}), halo {halo} "
+        f"(grid {grid}): {halo_s:.2f} s, peak {peak:.2f} GiB; mean |error| "
+        f"against the full-image pass {res['err_halo']:.3e}, tiled "
+        f"({cfg.tile}/{cfg.overlap}) {res['err_tiled']:.3e}; max |difference|"
+        f" from the one-rank reference {res['one_rank_diff']:.3e} (tolerance "
+        f"{BF16_STEP}); K1 launches {k1} (expected {expected}, at least "
+        f"{cfg.min_launches_per_forward})")
+    log("parallel", f"K1 against its plain version on the halo forward's "
+        f"own block inputs: " + ", ".join(
+            f"{c['shape']} {c['max_abs_err']:.3e}" for c in k1_checks)
+        + " (tol 2^-7|r|+1e-3)")
+    _gate(failures, k1 == expected and k1 >= cfg.min_launches_per_forward,
+          f"K1 launched {k1} times in one halo forward")
+    _gate(failures, all(c["ok"] for c in k1_checks), "K1 disagrees with its "
+          "plain version in the halo forward")
+    del out, tiled, full, one
+
+    model = load_flax_params(Denoiser(mcfg, device="cpu"),
+                             read_artifact(cfg.bundle)[1])
+    model = model.to(device).eval().requires_grad_(False)
+    fimg = img[:cfg.float_big, :cfg.float_big].contiguous()
+    t0 = time.perf_counter()
+    fout = halo_denoise(model, fimg, mesh)
+    _sync(device)
+    float_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        ftiled = TiledApplier(model, cfg.tile, cfg.overlap, cfg.tile_batch,
+                              preprocess=False)(fimg)
+        ffull = model(fimg[None])[0].float()
+        fone = one_rank_reference(lambda x: model(x[None])[0].float(), fimg,
+                                  -(-max(80, grid) // grid) * grid, grid)
+    fres = _halo_rule("float Denoiser", fout.float(), ftiled.float(), ffull,
+                      failures)
+    fres["one_rank_diff"] = _one_rank_gate("float Denoiser", fout.float(),
+                                           fone, failures)
+    log("parallel", f"halo_denoise of the bundle's float Denoiser on "
+        f"{cfg.float_big}x{cfg.float_big}: {float_s:.2f} s; mean |error| "
+        f"against the full-image pass {fres['err_halo']:.3e}, tiled "
+        f"{fres['err_tiled']:.3e}; max |difference| from the one-rank "
+        f"reference {fres['one_rank_diff']:.3e}")
+    return {"int8": res, "float": fres, "launches": k1, "halo_s": halo_s,
+            "float_s": float_s, "peak_gib": peak, "k1_checks": k1_checks}
+
+
+def phase_parallel(device: torch.device, cfg: ParallelSmokeConfig) -> dict:
+    """emx_torch.parallel on one card: initialize() over a one-rank group
+    (NCCL on the card, gloo on the CPU) and one all-reduce; the
+    data-parallel trainer under make_mesh_for_batch (parallel_train);
+    K2's offset (parallel_offsets); halo serving (parallel_halo); and
+    dryrun_multichip. Every gate is collected; the phase raises at its
+    end if one failed, and leaves the group either way."""
+    import torch.distributed as dist
+
+    from emx_torch.parallel import make_mesh, make_mesh_for_batch
+    from emx_torch.parallel.distributed import initialize
+    from emx_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend=backend)
+    failures: list = []
+    try:
+        x = torch.arange(4.0, device=device)
+        dist.all_reduce(x)
+        _sync(device)
+        log("parallel", f"process group: backend {dist.get_backend()}, "
+            f"world {dist.get_world_size()}, all_reduce {x.tolist()}")
+        _gate(failures, dist.get_backend() == backend
+              and dist.get_world_size() == 1
+              and x.tolist() == [0.0, 1.0, 2.0, 3.0],
+              f"process group {dist.get_backend()}, {x.tolist()}")
+        mesh = make_mesh_for_batch(cfg.batch, device=device)
+        parts = {"setup": time.perf_counter() - t0}
+
+        def timed(name, fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            parts[name] = time.perf_counter() - t
+            return out
+
+        trained = timed("train", parallel_train, device, cfg, mesh, failures)
+        offsets = timed("offsets", parallel_offsets, device, cfg, failures)
+        served = timed("halo", parallel_halo, device, cfg, make_mesh(
+            data=1, spatial=1, device=device), failures)
+        # As this rank of the one-rank group.
+        dry = timed("dryrun", dryrun_multichip, 1)
+        log("parallel", f"dryrun_multichip(1): {dry}")
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    log("parallel", f"{seconds:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")"
+        + (f" on {card_name_and_power()}" if device.type == "cuda" else ""))
+    if failures:
+        raise AssertionError("parallel: " + "; ".join(failures))
+    return {"train": trained, "offsets": offsets, "halo": served,
+            "dryrun": dry, "seconds": seconds,
+            "launches": (served["launches"], trained["launches"])}
+
+
 def kernels_line(kernel_results: list[dict], launches: int,
                  degrade: dict, degrade_launches: int,
                  phase_launches: dict | None = None,
@@ -2846,6 +3238,10 @@ def main() -> None:
     style = phase_style(device, StyleSmokeConfig())
     scope = phase_scope(device, ScopeSmokeConfig())
     swept = phase_sweep(device, SweepSmokeConfig())
+    parallel = phase_parallel(device, ParallelSmokeConfig())
+    kernel_results = kernel_results + parallel["halo"]["k1_checks"]
+    degraded["max_abs_err"] = max(degraded["max_abs_err"],
+                                  parallel["offsets"]["max_abs_err"])
     # The zoo, style, scope and sweep phases reach neither kernel: their
     # entries are the counts read around them (0).
     print(json.dumps(kernels_line(
@@ -2854,12 +3250,14 @@ def main() -> None:
          "decision": decided["launches"], "auto": auto["launches"],
          "qat": qat["k1_launches"], "zoo": zoo["launches"][0],
          "style": style["launches"][0], "scope": scope["launches"][0],
-         "sweep": swept["launches"][0]},
+         "sweep": swept["launches"][0],
+         "parallel": parallel["launches"][0]},
         {"train": trained_launches, "graph": graphed["launches"],
          "files": files["launches"], "quality": quality["launches"],
          "qat": qat["k2_launches"], "zoo": zoo["launches"][1],
          "style": style["launches"][1], "scope": scope["launches"][1],
-         "sweep": swept["launches"][1]})), flush=True)
+         "sweep": swept["launches"][1],
+         "parallel": parallel["launches"][1]})), flush=True)
     log("done", f"{time.perf_counter() - t0:.1f} s on {info['smi']}; "
         f"deploy K1 launches {deployed['launches']}")
     print(json.dumps({"ok": True, "device": {

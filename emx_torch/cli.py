@@ -17,6 +17,19 @@ default; cpu runs a command on the CPU).
   python -m emx_torch.cli ewrec --stack_dir=<focal-series TIFFs> --out=...
   python -m emx_torch.cli zoo-ladder [out_dir] [steps] [scale]
   python -m emx_torch.cli dqn-autofocus [out_dir] [episodes]
+
+`train-denoiser` and `train-infilling` train data-parallel over the
+largest mesh that divides their global batch (emx's
+make_mesh_for_batch). Under torchrun's RANK, WORLD_SIZE and MASTER_ADDR
+they join the process group first (NCCL with cards, gloo with
+--device=cpu):
+
+  torchrun --nproc_per_node=N -m emx_torch.cli train-denoiser ...
+
+Rank 0 writes the checkpoints, the logs and the artifact and prints the
+result; a rank past the mesh (a batch that the ranks do not divide)
+leaves at once; without those variables the mesh is one rank and
+changes nothing.
 """
 
 from __future__ import annotations
@@ -97,6 +110,32 @@ def _pipeline(data_dir: str, batch: int, crop: int, seed: int):
     return DataPipeline(synthetic_micrographs(max(64, 4 * batch), crop), cfg)
 
 
+def _mesh(batch_size: int, device):
+    """The training commands' data-parallel mesh, after joining the
+    process group where torchrun's variables are set; None on a rank
+    that the mesh leaves out (make_mesh_for_batch cuts it to the gcd of
+    the batch and the ranks), which leaves the group and trains
+    nothing."""
+    from emx_torch.parallel.distributed import initialize
+    from emx_torch.parallel.mesh import make_mesh_for_batch
+
+    initialize(backend="gloo" if device.type == "cpu" else "nccl")
+    mesh = make_mesh_for_batch(batch_size, device=device)
+    if mesh.coords is None:
+        print(f"rank {mesh.rank} lies outside {mesh}, which a batch of "
+              f"{batch_size} fills: it trains nothing", flush=True)
+        _leave_group()
+        return None
+    return mesh
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def train_denoiser(argv: list[str]) -> None:
     """Train the default Denoiser (group norm, s2d 2, full width unless
     --scale) on TIFF crops, resuming from model_dir/ckpt; write the
@@ -114,6 +153,9 @@ def train_denoiser(argv: list[str]) -> None:
 
     c = DenoiserCLIConfig.from_args(argv)
     device = resolve_device(c.device)
+    mesh = _mesh(c.batch_size, device)
+    if mesh is None:
+        return
     mcfg = DenoiserConfig().scaled(c.scale) if c.scale != 1.0 else \
         DenoiserConfig()
     trainer = Trainer(
@@ -122,7 +164,7 @@ def train_denoiser(argv: list[str]) -> None:
                     model_dir=c.model_dir,
                     ckpt_every_steps=c.ckpt_every_steps, seed=c.seed,
                     steps_per_launch=c.steps_per_launch),
-        example_fn=denoiser_example)
+        mesh=mesh, example_fn=denoiser_example)
     pipe = _pipeline(c.data_dir, c.batch_size, c.crop_size, c.seed)
     state = trainer.init()
     ckpt = Checkpointer(f"{c.model_dir}/ckpt")
@@ -140,6 +182,9 @@ def train_denoiser(argv: list[str]) -> None:
     loss = (float(trainer.last_metrics["loss"])
             if trainer.last_metrics else None)
     seconds = time.perf_counter() - t0
+    _leave_group()
+    if not trainer.writer:
+        return
     params, stats = to_flax_params(state.model)
     variables = {"params": nest(params),
                  **({"batch_stats": nest(stats)} if stats else {})}
@@ -206,6 +251,9 @@ def train_infilling(argv: list[str]) -> None:
 
     c = InfillingCLIConfig.from_args(argv)
     device = resolve_device(c.device)
+    mesh = _mesh(c.batch_size, device)
+    if mesh is None:
+        return
     mask = fixed_scan_mask((c.crop_size, c.crop_size), 1.0 / c.coverage)
     cfg = InfillingConfig().scaled(c.scale) if c.scale != 1.0 else \
         InfillingConfig()
@@ -214,7 +262,7 @@ def train_infilling(argv: list[str]) -> None:
         MultiscaleDiscriminator(cfg, device=device),
         GANConfig(model_dir=c.model_dir, ckpt_every_steps=c.ckpt_every_steps,
                   seed=c.seed, log_every=c.log_every),
-        example_fn=infilling_example(mask))
+        mesh=mesh, example_fn=infilling_example(mask))
     pipe = _pipeline(c.data_dir, c.batch_size, c.crop_size, c.seed)
     state = trainer.init()
     ckpt = Checkpointer(f"{c.model_dir}/ckpt")
@@ -238,6 +286,9 @@ def train_infilling(argv: list[str]) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
+    _leave_group()
+    if not trainer.writer:
+        return
     after = [digest(list(n.parameters())) for n in (state.gen, state.disc)]
     print(f"trained to step {state.step}", flush=True)
     print(json.dumps({

@@ -15,8 +15,11 @@
 // does: [0, 1). The generator is written out below (no cuRAND): the key is
 // the 64-bit seed that the wrapper puts in device memory (the kernel reads
 // it there, so that a CUDA graph of the train step can be replayed with a
-// new seed copied in), the counter (element, image); word 0 gives u,
-// word 1 gives u2.
+// new seed copied in), the counter (element, image_offset + image); word
+// 0 gives u, word 1 gives u2. The offset is the batch's first image in a
+// larger batch: a data-parallel rank that degrades rows [k, k + B) of a
+// global batch passes k and draws what a launch over the whole batch
+// draws for those rows (0 for a batch of its own).
 //
 // One deliberate divergence from the TPU kernel: its CDF loop starts at
 // P(X = 0) but only compares from j = 1 on, so it draws max(X - 1, 0)
@@ -155,7 +158,8 @@ __global__ void __launch_bounds__(THREADS, 4)
 degrade_kernel(const float* __restrict__ imgs, const float* __restrict__ scales,
                float* __restrict__ out, float* __restrict__ part,
                long long hw, int tiles, long long items, int ipb,
-               const unsigned long long* __restrict__ seed) {
+               const unsigned long long* __restrict__ seed,
+               unsigned image_offset) {
   __shared__ float red[2 * WARPS];
   // The Philox key is read from device memory, so a captured CUDA graph
   // draws a new stream on each replay from what was copied there.
@@ -180,7 +184,8 @@ degrade_kernel(const float* __restrict__ imgs, const float* __restrict__ scales,
         const long long e = e0 + (g + j) * THREADS + threadIdx.x;
         rate[j] = e < hw ? __fmul_rn(imgs[base + e], scale) : 0.0f;
         r[j] = philox4x32_10(Words{static_cast<uint32_t>(e),
-                                   static_cast<uint32_t>(e >> 32), b, 0u},
+                                   static_cast<uint32_t>(e >> 32),
+                                   image_offset + b, 0u},
                              key0, key1);
       }
 #pragma unroll
@@ -241,7 +246,9 @@ extern "C" cudaError_t emx_degrade_occupancy(int* blocks) {
 
 // imgs (B, H, W) f32, scales (B) f32, out (B, H, W) f32, part 2 x items
 // f32 scratch (items = B x ceil(hw / 4096)); seed one u64 on the device,
-// the 64-bit Philox key; all contiguous, on one device; hw = H * W. ipb
+// the 64-bit Philox key; image_offset the batch's first image in the
+// Philox counter (offset + B must stay below 2^32); all contiguous, on
+// one device; hw = H * W. ipb
 // and grid are the wrapper's plan (degrade_plan). One cooperative launch
 // on `stream` (CUDA 12 stream capture takes it into a graph as it is);
 // returns the first error,
@@ -249,10 +256,12 @@ extern "C" cudaError_t emx_degrade_occupancy(int* blocks) {
 extern "C" cudaError_t emx_poisson_degrade(const void* imgs, const void* scales,
                                            void* out, void* part, int B,
                                            long long hw, const void* seed,
-                                           int ipb, int grid,
-                                           cudaStream_t stream) {
-  if (B <= 0 || hw <= 0 || ipb <= 0 || grid <= 0 || seed == nullptr)
+                                           long long image_offset, int ipb,
+                                           int grid, cudaStream_t stream) {
+  if (B <= 0 || hw <= 0 || ipb <= 0 || grid <= 0 || seed == nullptr ||
+      image_offset < 0 || image_offset + B > 0xFFFFFFFFLL)
     return cudaErrorInvalidValue;
+  unsigned offset = static_cast<unsigned>(image_offset);
   const long long tiles_ll = (hw + TILE - 1) / TILE;
   if (tiles_ll > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
   int tiles = static_cast<int>(tiles_ll);
@@ -272,7 +281,8 @@ extern "C" cudaError_t emx_poisson_degrade(const void* imgs, const void* scales,
   float* o = static_cast<float*>(out);
   float* pt = static_cast<float*>(part);
   const unsigned long long* sd = static_cast<const unsigned long long*>(seed);
-  void* args[] = {&im, &sc, &o, &pt, &hw, &tiles, &items, &ipb, &sd};
+  void* args[] = {&im, &sc, &o, &pt, &hw, &tiles, &items, &ipb, &sd,
+                  &offset};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(degrade_kernel),
                                     dim3(grid), dim3(THREADS), args, 0, stream);
   if (err != cudaSuccess) return err;

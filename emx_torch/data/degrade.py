@@ -16,7 +16,12 @@ reads nothing but tensors. The trainer derives the seed from
 (TrainConfig.seed, step); for a graph it draws before each replay and
 hands the draws in through pinned buffers, so an eager step and a
 replayed one see the same values, and both see what eager steps saw
-before graphs existed.
+before graphs existed. `SplitExample.shard(block, blocks, runs)` is the
+example function of a data-parallel rank's rows of a global batch (row
+block `block` of `blocks` of each of `runs` microbatches): it draws for
+the global batch and keeps its rows, and the degrade kernel counts each
+run's images from its first global row, so the rows come out as the
+global batch's do.
 
 The partial-scan infilling GAN's examples
 (reference gan-infilling-100.py:1147-1192): fixed Bernoulli scan masks
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from emx_torch.ops.degrade_kernel import fused_poisson_degrade, seed_tensor
+from emx_torch.parallel.mesh import microbatch_rows
 from emx_torch.utils.image import flip_rotate, sanitize, scale0to1
 from emx_torch.utils.rng import fold_in
 
@@ -55,26 +61,66 @@ def sample_dose_scale(generator: torch.Generator, n: int,
     return base + mean * e
 
 
-def poisson_dose(seed, imgs: torch.Tensor,
-                 scales: torch.Tensor) -> torch.Tensor:
+def poisson_dose(seed, imgs: torch.Tensor, scales: torch.Tensor,
+                 image_offset: int = 0) -> torch.Tensor:
     """Low-dose images: Poisson(img * scale) shot noise, rescaled to [0, 1]
-    per image. `seed` as fused_poisson_degrade takes it."""
-    return fused_poisson_degrade(seed, imgs, scales)
+    per image. `seed` and `image_offset` as fused_poisson_degrade takes
+    them."""
+    return fused_poisson_degrade(seed, imgs, scales, image_offset)
+
+
+# Draws that are one value for the whole batch; every other draw holds
+# one row per image.
+SHARED_DRAWS = ("key",)
 
 
 @dataclasses.dataclass(frozen=True)
 class SplitExample:
     """An example function (seed, clean batch) -> (inputs, targets) in two
     halves: `draws(seed, b, device)` -> dict of tensors on `device`;
-    `apply(draws, imgs)` -> (inputs, targets) on the batch's device,
-    reading only tensors (so that a CUDA graph can capture it). Calling
-    it runs both."""
+    `apply(draws, imgs, image_offset=0)` -> (inputs, targets) on the
+    batch's device, reading only tensors (so that a CUDA graph can capture
+    it). Calling it runs both."""
 
     draws: Callable[[int, int, torch.device], dict[str, torch.Tensor]]
-    apply: Callable[[dict[str, torch.Tensor], torch.Tensor], tuple]
+    apply: Callable[..., tuple]
 
     def __call__(self, seed: int, imgs: torch.Tensor):
         return self.apply(self.draws(seed, imgs.shape[0], imgs.device), imgs)
+
+    def shard(self, block: int, blocks: int, runs: int = 1
+              ) -> "SplitExample":
+        """This example for a data-parallel rank's rows of a global batch
+        (emx_torch.parallel.mesh.microbatch_rows): `draws(seed, b,
+        device)` draws for the b * blocks images and keeps those rows
+        (the shared draws whole), and `apply` degrades each run at the
+        global index of its first image (one launch a run)."""
+        if not 0 <= block < blocks:
+            raise ValueError(f"block {block} of {blocks}")
+        if blocks == 1:
+            return self
+        return SplitExample(
+            functools.partial(_block_draws, self.draws, block, blocks, runs),
+            functools.partial(_block_apply, self.apply, block, blocks, runs))
+
+
+def _block_draws(draws, block: int, blocks: int, runs: int, seed: int,
+                 b: int, device) -> dict[str, torch.Tensor]:
+    d = draws(seed, b * blocks, device)
+    return {k: v if k in SHARED_DRAWS else
+            microbatch_rows(v, block, blocks, runs) for k, v in d.items()}
+
+
+def _block_apply(apply, block: int, blocks: int, runs: int,
+                 draws: dict[str, torch.Tensor], imgs: torch.Tensor):
+    c = imgs.shape[0] // runs
+    outs = [apply({k: v if k in SHARED_DRAWS else v[m * c:(m + 1) * c]
+                   for k, v in draws.items()}, imgs[m * c:(m + 1) * c],
+                  image_offset=(m * blocks + block) * c)
+            for m in range(runs)]
+    if runs == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def denoiser_draws(seed: int, b: int, device: torch.device | str = "cpu"
@@ -89,15 +135,17 @@ def denoiser_draws(seed: int, b: int, device: torch.device | str = "cpu"
             "key": seed_tensor(fold_in(seed, 1), device)}
 
 
-def denoiser_apply(draws: dict[str, torch.Tensor], imgs: torch.Tensor):
+def denoiser_apply(draws: dict[str, torch.Tensor], imgs: torch.Tensor,
+                   image_offset: int = 0):
     """A batch of (noisy, target) training pairs with the reference's
     recipe (denoiser-multi-gpu.py record_parser:861-876): sanitize ->
     scale0to1 -> a D4 transform per image -> Poisson at its dose; the
     target is the clean image rescaled to its noisy image's mean. `imgs`
-    (B, H, H) float32; `draws` on its device."""
+    (B, H, H) float32; `draws` on its device; `image_offset` the batch's
+    first row in a global batch (the degrade kernel's)."""
     imgs = scale0to1(sanitize(imgs), dim=(-2, -1))
     imgs = flip_rotate(imgs, draws["d4"])
-    lq = poisson_dose(draws["key"], imgs, draws["scales"])
+    lq = poisson_dose(draws["key"], imgs, draws["scales"], image_offset)
     ratio = lq.mean(dim=(-2, -1), keepdim=True) / torch.clamp(
         imgs.mean(dim=(-2, -1), keepdim=True), min=1e-12)
     return lq, imgs * ratio
@@ -170,10 +218,11 @@ def infilling_draws(seed: int, b: int, device: torch.device | str = "cpu"
 
 
 def infilling_apply(draws: dict[str, torch.Tensor], imgs: torch.Tensor,
-                    mask: torch.Tensor):
+                    mask: torch.Tensor, image_offset: int = 0):
     """A batch of (partial scan, full) GAN-infilling pairs
     (gan-infilling-100.py record_parser:1184-1192): sanitize (NaN -> 0)
-    -> [-1, 1] -> a D4 transform per image -> the scan mask's -1 fill."""
+    -> [-1, 1] -> a D4 transform per image -> the scan mask's -1 fill.
+    Nothing here counts images, so `image_offset` moves nothing."""
     imgs = norm_neg1to1(sanitize(imgs, 0.0))
     imgs = flip_rotate(imgs, draws["d4"])
     return apply_partial_scan(imgs, mask.to(imgs.device)), imgs

@@ -7,8 +7,11 @@
     pos, 17]` crop offsets, a thread pool for file sources, one gather
     for packed arrays, and the (epoch, index) cursor committed on
     consumption; it yields numpy batches, which the trainer uploads
-    (through pinned memory). emx's `as_global` (a multi-host
-    jax.Array) has no counterpart at world size 1 (ROADMAP.md);
+    (through pinned memory). `as_global(batch, sharding)` assembles the
+    ranks' shards into the global batch (an all-gather over the
+    sharding's groups; the shard itself with no process group), which is
+    what a data-parallel Trainer.fit takes, as emx's builds a global
+    jax.Array from each host's rows;
   * `DeviceDataset`: the whole corpus lives on the device and batches are
     gathered there; the epoch order is a permutation from a generator
     seeded by (seed, epoch), and the (epoch, index) cursor is saved and
@@ -118,6 +121,13 @@ class DataPipeline:
     # -- iteration -----------------------------------------------------------
     def __iter__(self) -> Iterator[np.ndarray]:
         return self._prefetching_iter()
+
+    # -- device placement ----------------------------------------------------
+    def as_global(self, batch: np.ndarray, sharding) -> torch.Tensor:
+        """Assemble this rank's batch shard into the global batch on its
+        device (`sharding` an emx_torch.parallel.mesh.NamedSharding, e.g.
+        batch_sharding(mesh)); every rank of the mesh calls it."""
+        return sharding.gather(batch)
 
     def _batches(self) -> Iterator[tuple[np.ndarray, int, int]]:
         """Yield (batch, epoch, index) where (epoch, index) is the cursor

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from emx_torch.parallel.mesh import all_reduce_mean
+
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0)
@@ -171,13 +173,22 @@ class BatchNorm(nn.Module):
     statistics then move to 0.99 * running + 0.01 * batch (not
     `F.batch_norm`'s update, which stores the unbiased variance).
     `update_stats` False skips that move: a rematerialised block's
-    second forward must not take it again."""
+    second forward must not take it again.
+
+    Cross-replica statistics (flax's `axis_name`): with `group` set (a
+    process group; the data-parallel Trainer sets it to the group of
+    the mesh axis `axis_name` names, or of the batch axes), training
+    averages E[x] and E[x^2] over the group's ranks, differentiably, so
+    that equal row blocks normalise as their global batch does."""
 
     MOMENTUM = 0.99
     EPS = 1e-3
 
-    def __init__(self, channels: int, dtype: torch.dtype):
+    def __init__(self, channels: int, dtype: torch.dtype,
+                 axis_name: str | None = None):
         super().__init__()
+        self.axis_name = axis_name
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -191,7 +202,11 @@ class BatchNorm(nn.Module):
         if train:
             dims = tuple(range(xf.dim() - 1))
             mean = xf.mean(dims)
-            var = torch.clamp(xf.square().mean(dims) - mean.square(), min=0.0)
+            mean_sq = xf.square().mean(dims)
+            if self.group is not None:
+                mean, mean_sq = all_reduce_mean(
+                    torch.stack([mean, mean_sq]), self.group)
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.mean.mul_(self.MOMENTUM).add_(
@@ -205,11 +220,23 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
+def bind_batch_norm(model: nn.Module, mesh) -> None:
+    """Point every BatchNorm of `model` at its group on `mesh` (an
+    emx_torch.parallel.mesh.Mesh): its own `axis_name`'s, or the batch
+    axes' where it names none (emx's jit over the mesh normalises over
+    the global batch). In training it then all-reduces its batch
+    statistics there."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = mesh.group(m.axis_name or mesh.batch_axes())
+
+
 class Norm(nn.Module):
     """Twin of emx.nn.blocks.Norm: 'none', 'group', 'instance' or
     'batch'."""
 
-    def __init__(self, kind: str, channels: int, dtype: torch.dtype):
+    def __init__(self, kind: str, channels: int, dtype: torch.dtype,
+                 axis_name: str | None = None):
         super().__init__()
         self.kind = kind
         if kind == "group":
@@ -218,7 +245,7 @@ class Norm(nn.Module):
                 groups -= 1
             self.GroupNorm_0 = GroupNorm(channels, groups, dtype)
         elif kind == "batch":
-            self.BatchNorm_0 = BatchNorm(channels, dtype)
+            self.BatchNorm_0 = BatchNorm(channels, dtype, axis_name)
         elif kind == "instance":
             # flax GroupNorm(num_groups=None, group_size=1): one group
             # per channel, under the same child name.

@@ -69,6 +69,50 @@ class DenoiserConfig:
         return cls(features=(8, 12, 16, 24, 24), num_middle_blocks=1,
                    aspp_filters=16, aspp_out=16)
 
+    def halo_grid(self) -> int:
+        """Alignment unit for spatial (halo) parallelism: shard heights
+        and halos must be multiples of the total downsampling stride so
+        every shard's conv grid coincides with the global grid."""
+        return self.space_to_depth * 16  # 4 stride-2 encoder stages
+
+    def receptive_field_radius(self) -> int:
+        """Theoretical receptive-field radius in INPUT pixels - an upper
+        bound: the effective radius of a trained net is far smaller (the
+        reference used 80 px overlap on 512 px tiles,
+        machine_learning/denoiser.py:653-682), and at full depth this
+        bound exceeds any practical halo/tile overlap, so halo-parallel
+        outputs are validated against tiled inference within tolerance
+        rather than bit-exactly. (The ASPP 'image-level' branch is a 2x2
+        avg pool in the reference - denoiser-multi-gpu.py:331-336 - not a
+        global pool, so the field IS finite.)"""
+        r, s = 0, 1
+        for _ in range(4):          # encoder blocks 0-3
+            r += 2 * s              # two 3x3 sep convs
+            r += s                  # strided 3x3
+            s *= 2
+        r += 3 * s                  # encoder block 4
+        r += 3 * s * self.num_middle_blocks
+        r += max(self.aspp_rates) * s   # largest dilated 3x3 branch
+        r += 2 * s                  # bilinear x4 upsample support
+        s //= 4
+        r += 3 * s                  # decoder stage 1 (+ transpose conv)
+        s //= 2
+        r += 3 * s                  # decoder stage 2
+        s //= 2
+        r += 2 * s + 1              # full-res refinement + 3x3 head
+        if self.folded_head:
+            r += 3 * self.folded_head_depth  # folded convs at body res
+        if self.mid_res_head:
+            # refinement sep convs + head conv at mid resolution
+            r += (3 * self.mid_res_depth + 3) * max(
+                1, self.space_to_depth // self.mid_res_factor)
+        r *= self.space_to_depth
+        if self.kernel_pred_head:
+            # widest Gaussian basis blur acts at full input resolution
+            r += int(3 * max(
+                self.kernel_pred_sigmas[: self.kernel_pred_head]))
+        return r
+
 
 def _space_to_depth(x: torch.Tensor, f: int) -> torch.Tensor:
     """Fold f x f spatial blocks into channels (NHWC)."""
@@ -157,10 +201,13 @@ class _FlaxNamed(Named):
         return r + m[skip](cat, train)
 
     def _finish(self, device: torch.device) -> None:
-        """Give every module its flax path and move to `device`."""
+        """Give every module its flax path and every BatchNorm the
+        config's cross-replica axis, and move to `device`."""
         for name, mod in self.named_modules():
             if hasattr(mod, "path"):
                 mod.path = name.replace(".", "/")
+            if isinstance(mod, BatchNorm):
+                mod.axis_name = self.config.axis_name
         self.to(device)
 
 

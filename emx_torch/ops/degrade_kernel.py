@@ -11,7 +11,9 @@ them to [0, 1] per image (a constant image maps to 0.5):
   * rate >= 10: max(round(rate + sqrt(rate) * z), 0), z by Box-Muller.
 
 The random bits come from Philox4x32-10 keyed by the 64-bit `seed`, with
-the counter (element, image). The kernel reads the seed from a device
+the counter (element, image_offset + image): a data-parallel rank that
+degrades rows [k, k + B) of a global batch passes `image_offset=k` and
+draws what one launch over the whole batch draws for those rows. The kernel reads the seed from a device
 tensor (`seed_tensor`), so a CUDA graph that captures it draws anew on
 each replay from a seed copied in; an int seed is copied there first.
 On a CUDA tensor the wrapper launches the hand-written kernel in
@@ -104,15 +106,26 @@ def _check_seed(seed: int) -> int:
     return seed
 
 
+def _check_offset(image_offset: int, b: int) -> int:
+    image_offset = int(image_offset)
+    if not 0 <= image_offset <= 2 ** 32 - 1 - b:
+        raise ValueError(f"image_offset + batch must lie in [0, 2^32), got "
+                         f"{image_offset} + {b}")
+    return image_offset
+
+
 def poisson_counts_reference(seed: int, imgs: torch.Tensor,
-                             scales: torch.Tensor) -> torch.Tensor:
+                             scales: torch.Tensor,
+                             image_offset: int = 0) -> torch.Tensor:
     """The kernel's counts before the rescale, in plain PyTorch: the same
     Philox words and the same float32 operations in the same order."""
     seed = _check_seed(seed)
     b, h, w = imgs.shape
+    image_offset = _check_offset(image_offset, b)
     dev = imgs.device
     elem = torch.arange(h * w, dtype=torch.int64, device=dev).reshape(1, h, w)
-    image = torch.arange(b, dtype=torch.int64, device=dev).reshape(b, 1, 1)
+    image = torch.arange(image_offset, image_offset + b, dtype=torch.int64,
+                         device=dev).reshape(b, 1, 1)
     bits0, bits1, _, _ = philox4x32_10(
         (elem & _MASK, elem >> 32, image, 0), (seed & _MASK, seed >> 32))
     rate = imgs * scales[:, None, None]
@@ -142,10 +155,11 @@ def poisson_counts_reference(seed: int, imgs: torch.Tensor,
 
 
 def poisson_degrade_reference(seed: int, imgs: torch.Tensor,
-                              scales: torch.Tensor) -> torch.Tensor:
+                              scales: torch.Tensor,
+                              image_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: its counts, rescaled to [0, 1]
     per image with the kernel's arithmetic."""
-    counts = poisson_counts_reference(seed, imgs, scales)
+    counts = poisson_counts_reference(seed, imgs, scales, image_offset)
     lo = torch.amin(counts, dim=(-2, -1), keepdim=True)
     span = torch.amax(counts, dim=(-2, -1), keepdim=True) - lo
     inv = torch.where(span > 0, 1.0 / torch.where(span > 0, span, 1.0), 0.0)
@@ -156,8 +170,8 @@ def poisson_degrade_reference(seed: int, imgs: torch.Tensor,
 def _launcher():
     fn = _build.load("degrade").lib.emx_poisson_degrade
     fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p] + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -199,8 +213,8 @@ def card_plan(device_index: int, b: int, hw: int) -> DegradePlan:
                         _blocks_per_sm(device_index))
 
 
-def fused_poisson_degrade(seed, imgs: torch.Tensor,
-                          scales: torch.Tensor) -> torch.Tensor:
+def fused_poisson_degrade(seed, imgs: torch.Tensor, scales: torch.Tensor,
+                          image_offset: int = 0) -> torch.Tensor:
     """Degrade a (B, H, W) float32 batch with per-image dose `scales` (B,)
     float32; returns the low-dose images rescaled to [0, 1]. `seed` is an
     integer in [0, 2^64), or a one-element int64 tensor on the batch's
@@ -208,8 +222,10 @@ def fused_poisson_degrade(seed, imgs: torch.Tensor,
     there: under CUDA graph capture it must be a tensor, so that each
     replay draws from what was copied into it. An int seed is copied to
     the card first; both take the same entry point and draw the same
-    words. `fused_poisson_degrade.launches` counts kernel launches (under
-    capture, one per captured launch, not per replay)."""
+    words. `image_offset` is the batch's first image in a larger batch
+    (an int: a captured launch keeps it). `fused_poisson_degrade.launches`
+    counts kernel launches (under capture, one per captured launch, not
+    per replay)."""
     if imgs.dim() != 3:
         raise ValueError(f"imgs must be (B, H, W), got {tuple(imgs.shape)}")
     b, h, w = imgs.shape
@@ -223,8 +239,10 @@ def fused_poisson_degrade(seed, imgs: torch.Tensor,
     # Checked on every device, so the CPU tests see what the kernel refuses.
     if not (imgs.is_contiguous() and scales.is_contiguous()):
         raise ValueError("fused_poisson_degrade takes contiguous tensors")
+    image_offset = _check_offset(image_offset, b)
     if imgs.device.type == "cpu":
-        return poisson_degrade_reference(_seed_value(seed), imgs, scales)
+        return poisson_degrade_reference(_seed_value(seed), imgs, scales,
+                                         image_offset)
     if imgs.device.type != "cuda":
         raise ValueError(f"no degrade kernel for device {imgs.device}")
     if b * h * w == 0:
@@ -248,7 +266,8 @@ def fused_poisson_degrade(seed, imgs: torch.Tensor,
     with torch.cuda.device(dev):
         err = _launcher()(
             imgs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            part.data_ptr(), b, h * w, seed.data_ptr(), plan.ipb, plan.grid,
+            part.data_ptr(), b, h * w, seed.data_ptr(), image_offset,
+            plan.ipb, plan.grid,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"degrade kernel launch failed: CUDA error {err}")

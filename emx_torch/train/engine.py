@@ -40,6 +40,32 @@ does any replaced model or optimizer tensor (a checkpoint restore).
 
 The learning rate lives in the optimizer's param groups, so the
 `learning_rate.txt` hot reload sets it there (in place for a tensor).
+
+Data parallelism (`mesh=`, emx_torch.parallel) computes what emx's jit
+over the mesh computes, the step of the global batch:
+  * every rank holds the whole model and takes the global batch, of
+    which it keeps its rows: its block along the mesh's batch axes
+    ('data', and 'dcn' on a pod mesh) of each grad_accum microbatch
+    (emx's microbatch m is global rows [m B/acc, (m+1) B/acc)), so that
+    each microbatch's rows stay together across the ranks;
+  * its example function draws for the global batch and keeps those
+    rows, the degrade kernel counting from each run's first global
+    image, so the rows come out as the global batch's do;
+  * the loss is a function of the microbatch's MSE (the huberised MSE
+    is not a mean over rows): each rank's MSE is averaged over the batch
+    axes, one differentiable scalar all-reduce, and the loss computed
+    from that on every rank; BatchNorm all-reduces its batch statistics
+    over the same group; the gradients are averaged over the batch axes
+    with one all-reduce before clipping;
+  * parameters, buffers and optimizer state are broadcast from the
+    mesh's first rank at `init` and when `fit` starts.
+A graph of K steps captures the collectives. Only rank 0 writes
+checkpoints, the metrics log, sample TIFFs and traces, and every rank
+waits at a step checkpoint until it is written; the first rank of the
+batch group reads `learning_rate.txt` at each logged step (every
+`log_every` steps, where a single rank reads it every step) and sends
+what it read to the others. A mesh whose batch axes hold one rank
+changes no value: its collectives copy.
 """
 
 from __future__ import annotations
@@ -53,7 +79,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from emx_torch.nn.blocks import bind_batch_norm
 from emx_torch.nn.init import init_parameters
+from emx_torch.parallel.mesh import (all_reduce_mean, all_reduce_mean_,
+                                     microbatch_rows, rank, replicated)
 from emx_torch.train.losses import huberised_mse
 from emx_torch.utils.config import Config, config_field, watch_file
 from emx_torch.utils.metrics import MetricsLogger, ThroughputMeter
@@ -198,6 +227,7 @@ class StepGraph:
         del saved
         torch.cuda.synchronize(device)
 
+        trainer.warm_collectives()
         self.graph = torch.cuda.CUDAGraph()
         before = fused_poisson_degrade.launches
         t0 = time.perf_counter()
@@ -260,13 +290,19 @@ class Trainer:
         `steps_per_launch` > 1. If None, batches must already be
         (inputs, targets) pairs.
       loss_fn: (pred, target) -> scalar; the reference's huberised MSE
-        by default.
+        by default. Data-parallel over more than one rank, or over a
+        process group, it must be a function of the MSE alone and carry
+        that function as `loss_fn.of_mse` (huberised_mse does).
       probe: an emx_torch.train.dose_probe.DoseProbe whose example_fn is
         `example_fn`; it draws each step's doses from the probe's current
         CDF, so it refuses steps_per_launch > 1, as emx's does.
+      mesh: an emx_torch.parallel.mesh.Mesh to train data-parallel over
+        its batch axes (module docstring); None trains on the model's
+        device alone. This rank must lie in it, and the model on its
+        device.
     """
 
-    def __init__(self, model: nn.Module, cfg: TrainConfig,
+    def __init__(self, model: nn.Module, cfg: TrainConfig, mesh=None,
                  example_fn: Callable | None = None,
                  loss_fn: Callable = huberised_mse, probe=None):
         if probe is not None and cfg.steps_per_launch > 1:
@@ -278,8 +314,20 @@ class Trainer:
                              "SplitExample)")
         self.model = model
         self.cfg = cfg
-        self.example_fn = example_fn
+        self.mesh = mesh
+        # This rank's block of rows of each global batch, and the batch
+        # axes' group (None: no collective).
+        # The example function of whole batches (sample dumps).
+        self.sample_example = example_fn
+        (self.block, self.blocks, self.group, self.chain,
+         self.example_fn) = join_mesh(mesh, (model,), example_fn,
+                                      max(1, cfg.grad_accum))
+        self.writer = rank() == 0
         self.loss_fn = loss_fn
+        if self.group is not None and not hasattr(loss_fn, "of_mse"):
+            raise ValueError("a data-parallel trainer averages the batch's "
+                             "MSE over its ranks: loss_fn must carry its "
+                             "function of the MSE as `of_mse`")
         self.graph: StepGraph | None = None
         # The metrics of fit's last step (device tensors, read on demand).
         self.last_metrics: dict | None = None
@@ -287,7 +335,8 @@ class Trainer:
         # inside the replays (the wrapper counts each captured launch once).
         self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
                             "k2_replayed": 0}
-        self.logger = MetricsLogger(cfg.model_dir or None)
+        self.logger = MetricsLogger(
+            cfg.model_dir if self.writer else None)
         self._lr_poll = (
             watch_file(os.path.join(cfg.model_dir, "learning_rate.txt"))
             if cfg.model_dir else lambda: None)
@@ -296,6 +345,47 @@ class Trainer:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def replicate(self, state: TrainState) -> None:
+        """Make the state equal on every rank of the mesh: the first
+        rank's parameters, buffers and optimizer state, in place."""
+        if self.mesh is not None:
+            replicated(self.mesh).broadcast_(_state_tensors(state))
+
+    def wait_for_writer(self) -> None:
+        """Every rank of a data-parallel mesh waits here until rank 0 has
+        written what it writes (a checkpoint any rank may restore)."""
+        if self.blocks > 1 and self.group is not None:
+            torch.distributed.barrier(group=self.group)
+
+    def warm_collectives(self) -> None:
+        """One all-reduce over the batch group, so that a communicator
+        the group creates lazily exists before a graph captures one."""
+        if self.group is not None:
+            x = torch.zeros(1, device=self.device)
+            torch.distributed.all_reduce(x, group=self.group)
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (an array or tensor, or an
+        (inputs, targets) pair of them), where it lies: its block of each
+        microbatch."""
+        return microbatch_rows(batch, self.block, self.blocks,
+                               max(1, self.cfg.grad_accum))
+
+    def _poll_lr(self, step: int):
+        """learning_rate.txt's overrides, read by the first rank of the
+        batch group at each logged step and sent to every rank of it, so
+        that all switch at one step (a single rank reads it every
+        step)."""
+        if self.blocks == 1 or self.group is None:
+            return self._lr_poll()
+        if step % max(1, self.cfg.log_every):
+            return None
+        src = self.chain[0]
+        box = [self._lr_poll() if self.mesh.rank == src else None]
+        torch.distributed.broadcast_object_list(box, src=src,
+                                                group=self.group)
+        return box[0]
+
     def init(self, sample_input=None) -> TrainState:
         """Initialise the model's parameters from TrainConfig.seed (flax's
         default distributions, emx_torch.nn.init) and a fresh optimizer.
@@ -303,8 +393,10 @@ class Trainer:
         knows its shapes without one."""
         gen = torch.Generator().manual_seed(fold_in(self.cfg.seed, 0))
         init_parameters(self.model, gen)
-        return TrainState(0, self.model,
-                          make_optimizer(self.cfg, self.model.parameters()))
+        state = TrainState(0, self.model,
+                           make_optimizer(self.cfg, self.model.parameters()))
+        self.replicate(state)
+        return state
 
     def step_seed(self, step: int) -> int:
         """The seed of step `step`'s example synthesis."""
@@ -312,12 +404,20 @@ class Trainer:
 
     def _loss(self, params, inputs, targets):
         out = self.model(inputs, train=True)
-        loss = self.loss_fn(out, targets)
+        if self.group is None:
+            loss = self.loss_fn(out, targets)
+            with torch.no_grad():
+                mse = torch.mean((out - targets) ** 2)
+        else:
+            # The microbatch's MSE over every rank's rows: the ranks hold
+            # equal numbers of rows, so it is the mean of their MSEs.
+            mse = all_reduce_mean(torch.mean((out - targets) ** 2),
+                                  self.group)
+            loss = self.loss_fn.of_mse(mse)
+            mse = mse.detach()
         if self.cfg.weight_decay:
             l2 = sum(torch.sum(p ** 2) for p in params)
             loss = loss + self.cfg.weight_decay * 0.5 * l2
-        with torch.no_grad():
-            mse = torch.mean((out - targets) ** 2)
         return loss, mse
 
     def _update(self, state: TrainState, inputs, targets) -> dict:
@@ -344,6 +444,8 @@ class Trainer:
             if accum > 1:
                 for g in grads:
                     g.div_(accum)
+            if self.group is not None:
+                all_reduce_mean_(grads, self.group, self.blocks)
             grad_norm = torch.sqrt(sum(torch.sum(g ** 2) for g in grads))
             if cfg.grad_clip_norm > 0:
                 keep = grad_norm < cfg.grad_clip_norm
@@ -362,8 +464,10 @@ class Trainer:
         return t.to(self.device)
 
     def step_fn(self, state: TrainState, batch):
-        """One optimizer step; returns (state, metrics) with the metrics
+        """One optimizer step on a global batch (of which a data-parallel
+        rank keeps its rows); returns (state, metrics) with the metrics
         `loss`, `mse` and `grad_norm` as 0-dim tensors on the device."""
+        batch = self._rows(batch)
         if self.example_fn is not None:
             # Integer corpora upload raw and convert here, on the device.
             batch = self._to_device(batch).float()
@@ -379,6 +483,7 @@ class Trainer:
         """K steps as one replay of the step graph (captured at the first
         launch, and again when a tensor it reads was replaced); returns
         the (K, 3) metrics of the K steps."""
+        batches = [self._rows(b) for b in batches]
         seeds = [self.step_seed(state.step + i) for i in range(len(batches))]
         if self.graph is None or self.graph.key != StepGraph.state_key(state):
             self.graph = None
@@ -414,8 +519,9 @@ class Trainer:
         it = iter(pipeline)
         spl = max(1, cfg.steps_per_launch)
         tracer, traced = None, False
+        self.replicate(state)
         while state.step < num_steps:
-            if (cfg.profile_dir and not traced
+            if (cfg.profile_dir and self.writer and not traced
                     and state.step >= cfg.profile_start_step):
                 tracer, traced = self._start_trace(), True
                 trace_from = state.step
@@ -441,7 +547,7 @@ class Trainer:
                     vals.update(tp)
                 self.logger.log(step, **vals)
 
-            overrides = self._lr_poll()
+            overrides = self._poll_lr(step)
             if overrides and "learning_rate" in overrides:
                 set_learning_rate(state.optimizer,
                                   overrides["learning_rate"])
@@ -449,7 +555,7 @@ class Trainer:
             if eval_fn and eval_every and step % eval_every == 0:
                 eval_fn(state, step)
 
-            if (cfg.sample_every and cfg.model_dir
+            if (cfg.sample_every and cfg.model_dir and self.writer
                     and step % cfg.sample_every == 0):
                 self._dump_samples(state, batch, step)
 
@@ -458,9 +564,11 @@ class Trainer:
                              and step % cfg.ckpt_every_steps == 0)
                 due_time = (cfg.ckpt_every_secs and time.monotonic()
                             - last_save > cfg.ckpt_every_secs)
-                if due_steps or due_time:
+                if self.writer and (due_steps or due_time):
                     checkpointer.save(step, state, pipeline.state_dict())
                     last_save = time.monotonic()
+                if due_steps:
+                    self.wait_for_writer()
         if tracer is not None:
             self._stop_trace(tracer, trace_from)
         return state
@@ -492,9 +600,9 @@ class Trainer:
 
         try:
             with torch.no_grad():
-                if self.example_fn is not None:
+                if self.sample_example is not None:
                     first = self._to_device(batch)[:1].float()
-                    inputs, targets = self.example_fn(
+                    inputs, targets = self.sample_example(
                         fold_in(self.cfg.seed, 0x5A5A5A), first)
                 else:
                     inputs, targets = (torch.as_tensor(t)[:1].to(self.device)
@@ -509,3 +617,28 @@ class Trainer:
         except Exception as e:  # sample dumps must never kill training
             self.logger.log(step, sample_dump_error=str(e)[:120])
 
+
+def join_mesh(mesh, nets, example_fn, runs: int = 1):
+    """A trainer's place on `mesh`'s batch axes: (block, blocks, group,
+    chain, example_fn), this rank's row block of `blocks`, the axes'
+    process group (None: no collective) and its ranks in block order,
+    and `example_fn` sharded to the rank's rows of `runs` microbatches;
+    the BatchNorms of `nets` take the group where the axes hold more
+    than one rank. No mesh: one block, no group."""
+    if mesh is None:
+        return 0, 1, None, None, example_fn
+    if mesh.coords is None:
+        raise ValueError(f"rank {mesh.rank} is outside the mesh {mesh}: "
+                         f"it holds no rows to train on")
+    axes = mesh.batch_axes()
+    block, blocks = mesh.index(axes), mesh.axis_size(axes)
+    if blocks > 1:
+        for net in nets:
+            bind_batch_norm(net, mesh)
+    if example_fn is not None:
+        if not hasattr(example_fn, "shard"):
+            raise ValueError("a data-parallel trainer needs an example_fn "
+                             "in two halves (emx_torch.data.degrade."
+                             "SplitExample)")
+        example_fn = example_fn.shard(block, blocks, runs)
+    return block, blocks, mesh.group(axes), mesh.chain(axes), example_fn

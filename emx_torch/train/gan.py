@@ -31,6 +31,16 @@ for the fake crops of the discriminator loss, as emx shares k_cf) and
 `crops_r` (the real crops of the discriminator loss), and three
 uniforms (two label flips, one label smoothing). `step_fn` takes them
 from the caller when given, so a test can feed it emx's draws.
+
+Data parallelism (`mesh=`) follows emx_torch.train.engine's rules: each
+rank keeps its rows of the global batch and draws them as the global
+batch draws them; D's mean outputs on fake and real crops are averaged
+over the batch axes (differentiably) before the log terms read them, so
+every loss is the global batch's; the trainee's gradients are averaged
+before clipping, and the metrics are global means. So every host
+decision in `fit` (rollback, trainee switch) reads numbers that are equal
+on every rank, and the ranks switch at the same steps. Only rank 0
+writes checkpoints and the metrics log; every rank restores.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ from torch import nn
 
 from emx_torch.nn.infilling import crop_offsets, multiscale_crops
 from emx_torch.nn.init import init_parameters
+from emx_torch.parallel.mesh import (all_reduce_mean, all_reduce_mean_,
+                                     microbatch_rows, rank, replicated)
+from emx_torch.train.engine import join_mesh
 from emx_torch.utils.config import Config, config_field
 from emx_torch.utils.metrics import MetricsLogger, ThroughputMeter
 from emx_torch.utils.rng import fold_in
@@ -140,18 +153,24 @@ class GANTrainer:
       generator, discriminator: modules on one device
         (emx_torch.nn.infilling).
       cfg: GANConfig.
+      mesh: an emx_torch.parallel.mesh.Mesh to train data-parallel over
+        its batch axes (module docstring); None: the nets' device alone.
       example_fn: a SplitExample (seed, clean batch) -> (partial scans,
         full images), e.g. emx_torch.data.degrade.infilling_example(mask);
         if None, batches must already be (inputs, truths) pairs.
     """
 
     def __init__(self, generator: nn.Module, discriminator: nn.Module,
-                 cfg: GANConfig, example_fn: Callable | None = None):
+                 cfg: GANConfig, mesh=None,
+                 example_fn: Callable | None = None):
         self.gen = generator
         self.disc = discriminator
         self.cfg = cfg
-        self.example_fn = example_fn
-        self.logger = MetricsLogger(cfg.model_dir or None)
+        self.mesh = mesh
+        self.block, self.blocks, self.group, _, self.example_fn = join_mesh(
+            mesh, (generator, discriminator), example_fn)
+        self.writer = rank() == 0
+        self.logger = MetricsLogger(cfg.model_dir if self.writer else None)
         # What fit's host loop did (emx only logs these).
         self.stats = {"rollbacks": 0, "forced_switches": 0}
 
@@ -168,7 +187,23 @@ class GANTrainer:
         for i, net in enumerate((self.gen, self.disc)):
             init_parameters(net, torch.Generator().manual_seed(
                 fold_in(self.cfg.seed, 0, i)))
-        return self.new_state()
+        state = self.new_state()
+        self.replicate(state)
+        return state
+
+    def replicate(self, state: GANState) -> None:
+        """Make the state equal on every rank of the mesh: the first
+        rank's nets, optimizer states and EMAs, in place."""
+        if self.mesh is None:
+            return
+        tensors = [state.pred_avg, state.pred_avg_real]
+        for net, opt in ((state.gen, state.gen_opt),
+                         (state.disc, state.disc_opt)):
+            tensors += list(net.parameters()) + list(net.buffers())
+            for st in opt.state.values():
+                tensors += [v for v in st.values() if torch.is_tensor(v)]
+        replicated(self.mesh).broadcast_(tensors)
+
 
     def new_state(self) -> GANState:
         """A step-0 state around both nets as they stand (no
@@ -200,10 +235,12 @@ class GANTrainer:
     # ------------------------------------------------------------------
     def step_fn(self, state: GANState, batch, do_gen: bool, do_disc: bool,
                 draws: dict | None = None):
-        """One G+D step; returns (state, metrics) with the metrics of
-        METRICS as 0-dim device tensors. `do_gen` / `do_disc` say which
-        optimizer steps."""
+        """One G+D step on a global batch (of which a data-parallel rank
+        keeps its rows); returns (state, metrics) with the metrics of
+        METRICS as 0-dim device tensors, global means. `do_gen` /
+        `do_disc` say which optimizer steps."""
         cfg = self.cfg
+        batch = microbatch_rows(batch, self.block, self.blocks)
         if self.example_fn is not None:
             batch = torch.as_tensor(batch).to(self.device).float()
             if draws is None:
@@ -230,7 +267,7 @@ class GANTrainer:
                               train=False)
         fm = sum(torch.mean(torch.abs(a - b))
                  for a, b in zip(feats_f, feats_r))
-        p_fake_mean = torch.mean(p_fake)
+        p_fake_mean = all_reduce_mean(torch.mean(p_fake), self.group)
         adv = -torch.log(torch.clamp(p_fake_mean, 1e-8, 1.0))
         mse = torch.mean((fake - truth) ** 2)
         g_loss = adv + cfg.feature_match_weight * fm + cfg.mse_weight * mse
@@ -250,7 +287,8 @@ class GANTrainer:
         p_f, _ = disc(multiscale_crops(draws["crops_f"], fake.detach()),
                       train=True)
         p_r, _ = disc(multiscale_crops(draws["crops_r"], truth), train=True)
-        p_f, p_r = torch.mean(p_f), torch.mean(p_r)
+        p_f = all_reduce_mean(torch.mean(p_f), self.group)
+        p_r = all_reduce_mean(torch.mean(p_r), self.group)
         lf = -torch.log(torch.clamp(1.0 - torch.abs(fake_label - p_f),
                                     1e-8, 1.0 - 1e-8))
         lr_ = -torch.log(torch.clamp(1.0 - torch.abs(real_label - p_r),
@@ -269,6 +307,8 @@ class GANTrainer:
                 continue
             with torch.no_grad():
                 grads = [g.clone() for g in grads]
+                if self.group is not None:
+                    all_reduce_mean_(grads, self.group, self.blocks)
                 clip_by_global_norm_(grads, clip)
             for p, g in zip(params, grads):
                 p.grad = g
@@ -285,7 +325,15 @@ class GANTrainer:
         metrics = {"gen_loss": g_loss, "disc_loss": d_loss,
                    "d_fake": p_fake_mean, "d_fake_after": p_f,
                    "d_real": p_r, "mse": mse}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.group is not None:
+            # The losses and the MSE hold this rank's rows: their global
+            # means (D's outputs are global already).
+            local = ("gen_loss", "disc_loss", "mse")
+            means = torch.stack([metrics[k] for k in local])
+            all_reduce_mean_([means], self.group, self.blocks)
+            metrics.update(zip(local, means.unbind()))
+        return state, metrics
 
     # ------------------------------------------------------------------
     def lr_at(self, step: int) -> float:
@@ -316,6 +364,7 @@ class GANTrainer:
         forced_switches = 0
         rollbacks = 0
         it = iter(pipeline)
+        self.replicate(state)
         for _ in range(int(state.step), num_steps):
             state, metrics = self.step_fn(state, next(it), train_gen,
                                           not train_gen)
@@ -377,5 +426,9 @@ class GANTrainer:
 
             if checkpointer is not None and cfg.ckpt_every_steps and \
                     step % cfg.ckpt_every_steps == 0:
-                checkpointer.save(step, state, pipeline.state_dict())
+                if self.writer:
+                    checkpointer.save(step, state, pipeline.state_dict())
+                if self.blocks > 1 and self.group is not None:
+                    # A rollback on any rank restores this file.
+                    torch.distributed.barrier(group=self.group)
         return state

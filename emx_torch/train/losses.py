@@ -2,7 +2,7 @@
 
   * huberised_mse, the denoiser's capped loss: 1000 * mse below 1e-3,
     sqrt(1000 * mse) above (reference misc_py/denoiser-multi-gpu.py:
-    772-773);
+    772-773); `huberise` is the cap alone;
   * ssim / ms_ssim, structural similarity as used by the encoder-decoder
     experiments (reference misc_py/encoder-decoder.py:88-143), on
     (N, H, W, 1) batches as emx's. The 11x11 window is a float32
@@ -16,9 +16,18 @@ import torch
 import torch.nn.functional as F
 
 
-def huberised_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    mse = torch.mean((pred - target) ** 2)
+def huberise(mse: torch.Tensor) -> torch.Tensor:
+    """The cap of huberised_mse, applied to a mean squared error."""
     return torch.where(mse < 1e-3, 1000.0 * mse, torch.sqrt(1000.0 * mse))
+
+
+def huberised_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return huberise(torch.mean((pred - target) ** 2))
+
+
+# A loss of the batch's MSE alone says so: a data-parallel Trainer
+# averages the ranks' MSEs (one scalar) and applies this to the mean.
+huberised_mse.of_mse = huberise
 
 
 def _gaussian_window(size: int, sigma: float,

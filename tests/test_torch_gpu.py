@@ -654,3 +654,94 @@ def test_scope_on_the_card(cuda):
                      "docs/runs/dqn_autofocus_v2/policy.npz").q_values(
         obs.to(dev)).cpu() for dev in ("cpu", cuda)]
     torch.testing.assert_close(q[1], q[0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 5])
+def test_degrade_kernel_image_offset(cuda, offset):
+    """K2 with image_offset=k on rows [k:] draws what the whole batch's
+    launch draws for those rows, and what the plain version draws, on
+    every element; eagerly and in a captured graph."""
+    gen = torch.Generator().manual_seed(9)
+    imgs = torch.rand((7, 96, 80), generator=gen).to(cuda)
+    scales = (25.0 + 75.0 * torch.rand(7, generator=gen)).to(cuda)
+    rows, sc = imgs[offset:].contiguous(), scales[offset:].contiguous()
+    whole = fused_poisson_degrade(13, imgs, scales)
+    got = fused_poisson_degrade(13, rows, sc, image_offset=offset)
+    assert torch.equal(got, whole[offset:])
+    assert torch.equal(got, poisson_degrade_reference(13, rows, sc, offset))
+    assert not torch.equal(got, fused_poisson_degrade(13, rows, sc))
+    key = degrade_kernel.seed_tensor(1, cuda)
+    fused_poisson_degrade(key, rows, sc, image_offset=offset)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_poisson_degrade(key, rows, sc, image_offset=offset)
+    key.copy_(degrade_kernel.seed_tensor(13, cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.fixture
+def nccl_world_1(cuda):
+    """A one-rank NCCL process group at a free local port."""
+    import socket
+
+    import torch.distributed as dist
+
+    from emx_torch.parallel.distributed import initialize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", 1, 0)
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_nccl_world_1_all_reduce(nccl_world_1):
+    import torch.distributed as dist
+
+    from emx_torch.parallel import make_mesh
+
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    x = torch.arange(5.0, device=nccl_world_1)
+    dist.all_reduce(x)
+    assert x.tolist() == [0.0, 1.0, 2.0, 3.0, 4.0]
+    mesh = make_mesh()
+    assert mesh.shape == {"data": 1, "spatial": 1}
+    assert mesh.device.type == "cuda" and mesh.group("data") is not None
+
+
+@pytest.mark.gpu
+def test_graph_equals_eager_under_a_mesh(nccl_world_1, tmp_path):
+    """Under a one-rank NCCL mesh (the gradient all-reduce and the
+    loss's gather captured in the graph): 6 steps eagerly and as 3
+    replays of a graph of 2 steps, bit for bit, and equal to 6 steps
+    without a mesh."""
+    from emx_torch.parallel import make_mesh
+
+    was = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        runs = {}
+        for name, kw, mesh in (("plain", {}, None),
+                               ("eager", {}, make_mesh()),
+                               ("graph", {"steps_per_launch": 2},
+                                make_mesh())):
+            trainer, state, data = _graph_setup(nccl_world_1, tmp_path,
+                                                name, **kw)
+            if mesh is not None:
+                trainer = Trainer(trainer.model, trainer.cfg, mesh=mesh,
+                                  example_fn=denoiser_example)
+            trainer.fit(state, data, 6)
+            torch.cuda.synchronize()
+            runs[name] = _params(state)
+        for name in ("eager", "graph"):
+            for k in runs["plain"]:
+                assert torch.equal(runs[name][k], runs["plain"][k]), (name, k)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was

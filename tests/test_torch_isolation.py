@@ -1,7 +1,7 @@
-"""The port stands alone: emx_torch, chip_smoke.py and the card-only
-tests import neither JAX, flax, ml_dtypes, msgpack nor the emx package,
-at module level or in a function body (the machine with the card has
-none of them)."""
+"""The port stands alone: emx_torch, chip_smoke.py, the card-only tests
+and the gloo ranks' worker import neither JAX, flax, ml_dtypes, msgpack
+nor the emx package, at module level or in a function body (the machine
+with the card has none of them)."""
 
 import ast
 import pathlib
@@ -14,6 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "ml_dtypes", "msgpack", "emx")
 PORT_FILES = sorted((ROOT / "emx_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+    ROOT / "tests" / "torch_parallel_worker.py",
     ROOT / "scripts" / "port_scope_drive.py",
     ROOT / "scripts" / "port_dqn_spread.py"]
 
@@ -84,9 +85,10 @@ print(len(names))
     "scope/protocol.py", "scope/sim.py", "scope/env.py", "scope/dqn.py",
     "scope/vec_env.py", "scope/classifier.py", "scope/demo.py",
     "bench/dqn_run.py", "bench/dqn_vec.py", "bench/sweep.py", "data/cif.py",
-    "data/misc_files.py"])
+    "data/misc_files.py", "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/distributed.py", "parallel/halo.py", "parallel/dryrun.py"])
 def test_recipe_modules_are_checked(name):
-    """The recipe's, the file path's, the GAN's, EWREC's, the model zoo's
-    and the scope's modules, the tools and the CLI are among the files
-    checked."""
+    """The recipe's, the file path's, the GAN's, EWREC's, the model zoo's,
+    the scope's and the mesh's modules, the tools and the CLI are among
+    the files checked."""
     assert ROOT / "emx_torch" / name in PORT_FILES

@@ -1,7 +1,6 @@
 """The port's public surface against emx's: each ported package's
 `__init__` exports every name of emx's `__all__` (the port may add
-names of its own), and the keywords emx's callers pass exist. emx.parallel,
-whose modules are not ported yet, is left out until it lands."""
+names of its own), and the keywords emx's callers pass exist."""
 
 import importlib
 import inspect
@@ -9,8 +8,8 @@ import inspect
 import numpy as np
 import pytest
 
-PACKAGES = ("analysis", "data", "io", "nn", "ops", "physics", "recon",
-            "scope", "serve", "train", "utils")
+PACKAGES = ("analysis", "data", "io", "nn", "ops", "parallel", "physics",
+            "recon", "scope", "serve", "train", "utils")
 
 
 @pytest.mark.parametrize("package", PACKAGES)
@@ -78,3 +77,30 @@ def test_keywords_match_emx(tmp_path):
     with pytest.raises(ValueError, match="not present"):
         load_artifact(str(tmp_path),
                       template_variables={"params": {"c": np.zeros(1)}})
+
+
+@pytest.mark.parametrize("name, keywords", [
+    ("train.Trainer", ("mesh", "example_fn")),
+    ("train.gan.GANTrainer", ("mesh", "example_fn")),
+    ("parallel.batch_sharding", ("spatial_dims",)),
+    ("parallel.make_mesh", ("data", "spatial", "devices")),
+    ("parallel.mesh.make_mesh_for_batch", ("spatial", "devices")),
+    ("parallel.halo.spatial_apply", ("halo", "axis_name", "grid")),
+    ("parallel.halo.halo_denoise", ("halo", "axis_name")),
+    ("parallel.distributed.initialize", ("coordinator_address",
+                                         "num_processes", "process_id")),
+    ("parallel.distributed.make_pod_mesh", ("dcn_data", "spatial")),
+    ("nn.blocks.Norm", ("axis_name",)),
+    ("nn.DenoiserConfig", ("axis_name",)),
+])
+def test_mesh_keywords_match_emx(name, keywords):
+    """The keywords emx's callers pass to the mesh surface exist on both
+    sides: mesh=, spatial_dims=, grid=, halo=, axis_name=."""
+    module, attr = name.rsplit(".", 1)
+    for pkg in ("emx", "emx_torch"):
+        obj = getattr(importlib.import_module(f"{pkg}.{module}"), attr)
+        params = (set(inspect.signature(obj).parameters)
+                  if not hasattr(obj, "__dataclass_fields__")
+                  else set(obj.__dataclass_fields__))
+        missing = set(keywords) - params
+        assert not missing, f"{pkg}.{name} lacks {sorted(missing)}"
