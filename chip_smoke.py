@@ -235,6 +235,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import tempfile
 import time
@@ -283,7 +284,14 @@ from emx_torch.utils.metrics import read_jsonl
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 67e12          # an FMA counted as two operations
+# Issue rates per unit (Hopper white paper, per SM and clock, 132 SMs at
+# 1.98 GHz): FP32 add, multiply or compare on 128 lanes (also every
+# instruction's issue slot: 4 schedulers of 32 lanes), INT32 on 64, a
+# transcendental or reciprocal (MUFU) on 16.
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+MUFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,18 +359,46 @@ def phase_device(device: torch.device) -> dict:
 KERNEL_SOURCES = ("sepconv", "degrade")
 
 
+def ptxas_frames(log_text: str) -> dict:
+    """{function: (stack frame, spill store, spill load bytes)} from
+    nvcc's `-Xptxas -v` output."""
+    frames, fn = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and fn:
+            frames[fn] = tuple(int(v) for v in m.groups())
+    return frames
+
+
+# K2's kernels (the exhaustive division check is not on the path).
+K2_KERNELS = ("count_kernel", "rescale_kernel")
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     built = _build.load_all(KERNEL_SOURCES)
     out = {"seconds": time.perf_counter() - t0}
     for name, lib in built.items():
         ptxas = [ln.strip() for ln in lib.log.splitlines()
-                 if "registers" in ln or "Compiling entry" in ln]
+                 if "registers" in ln or "Compiling entry" in ln
+                 or "spill" in ln]
         log("build", f"{name}.cu: nvcc done after {lib.seconds:.2f} s -> "
             f"{lib.path.name}")
         for ln in ptxas:
             log("build", ln)
         out[name] = {"seconds": lib.seconds, "ptxas": ptxas}
+    frames = ptxas_frames(built["degrade"].log)
+    k2 = {f: v for f, v in frames.items() if any(k in f for k in K2_KERNELS)}
+    if built["degrade"].log and (len(k2) != len(K2_KERNELS) or any(
+            v[1] or v[2] for v in k2.values())):
+        raise AssertionError(f"K2's kernels spill or were not compiled: "
+                             f"{k2}")
+    log("build", f"K2's kernels: stack, spill store and load bytes "
+        f"{sorted(k2.values())}")
     log("build", f"all sources built and loaded in {out['seconds']:.2f} s")
     return out
 
@@ -500,28 +536,49 @@ def training_batch(rng, b: int, size: int):
     return imgs, (25.0 + 75.0 * rng.exponential(size=b)).astype(np.float32)
 
 
-def degrade_ops(rate: torch.Tensor, counts: torch.Tensor) -> float:
-    """Operations K2 does on this data, each arithmetic operation, compare
-    and transcendental counted as one: 96 for the Philox words, 1 for the
-    rate, 5 for the min/max and the rescale; below rate 10, 7 plus 5 per
-    CDF term the loop reaches (it stops at the count, at most 31); above,
-    19 for two uniforms and Box-Muller."""
+def degrade_ops(rate: torch.Tensor, counts: torch.Tensor) -> dict:
+    """Operations K2 does on this data, by the unit that issues them, each
+    counted as one: `int32`, `fp32` (adds, multiplies, compares, fmas)
+    and `mufu` (transcendentals, reciprocals).
+    Every element: Philox4x32-10's words 0 and 1, 54 INT32 (rounds 2-9
+    six each: two products low and high, two three-way xors; the first
+    three, since its second product is the image's; the last three,
+    since only words 0 and 1 are used), u (2 INT32, 1 FP32), the rate and
+    the rate < 10 compare (2 FP32), the output's min, max and rescale (5
+    FP32). Below rate 10: exp (1 MUFU, 3 FP32), the j = 0 compare (1
+    FP32) and 6 FP32 a CDF term the loop reaches (a multiply, the
+    division as a multiply and two fmas, an add, a compare; it stops at
+    the count, at most 31 terms). Above: u2 (2 INT32, 1 FP32), log and
+    the two square roots (3 MUFU, 9 FP32), cos (1 INT32, 10 FP32) and
+    the rest of Box-Muller and the rounding (10 FP32)."""
     small = rate < 10.0
     terms = torch.clamp(counts, max=31.0)
-    per = torch.where(small, 7.0 + 5.0 * terms, torch.full_like(rate, 19.0))
-    return float((per + 102.0).double().sum())
+    fp32 = torch.where(small, 12.0 + 6.0 * terms,
+                       torch.full_like(rate, 38.0))
+    return {"int32": float((56.0 + 3.0 * (~small).double()).sum()),
+            "fp32": float(fp32.double().sum()),
+            "mufu": float(torch.where(small, 1.0, 3.0).double().sum())}
+
+
+def degrade_ops_ms(ops: dict) -> float:
+    """The least time of these operations: all of them through the issue
+    slots, the INT32 ones through their unit, the MUFU ones through
+    theirs, whichever takes longest."""
+    return 1e3 * max(sum(ops.values()) / ISSUE_OPS_PER_S,
+                     ops["int32"] / INT32_OPS_PER_S,
+                     ops["mufu"] / MUFU_OPS_PER_S)
 
 
 def degrade_bound_ms(imgs: torch.Tensor, scales: torch.Tensor,
                      counts: torch.Tensor) -> tuple[float, str]:
     """Least time for the card: imgs read once, the output written once
-    (and the scales), against this data's operations at the float32
-    CUDA-core rate (integer operations included)."""
+    (and the scales), against this data's operations, each at the rate
+    of the unit that issues it (degrade_ops_ms)."""
     nbytes = 8 * imgs.numel() + 4 * scales.numel()
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = degrade_ops(imgs * scales[:, None, None], counts) / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = degrade_ops_ms(degrade_ops(imgs * scales[:, None, None], counts))
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def _compare_degrade(name: str, seed: int, imgs: torch.Tensor,
@@ -554,9 +611,10 @@ def _compare_degrade(name: str, seed: int, imgs: torch.Tensor,
 
 def _time_degrade(seed: int, imgs: torch.Tensor,
                   scales: torch.Tensor) -> dict:
-    """CUDA-event times of K2, its plain version and torch.poisson +
-    min/max + rescale (no one call computes the function), and the
-    card's least time for this data."""
+    """CUDA-event times of K2, of each of its CUDA kernels alone (the
+    memset and counting kernel, the rescale), its plain version and
+    torch.poisson + min/max + rescale (no one call computes the
+    function), and the card's least time for this data."""
     def library():
         c = torch.poisson(imgs * scales[:, None, None])
         lo = torch.amin(c, dim=(1, 2), keepdim=True)
@@ -574,10 +632,15 @@ def _time_degrade(seed: int, imgs: torch.Tensor,
            "plain_ms": host_paced_ms(
                lambda: poisson_degrade_reference(seed, imgs, scales),
                iters=5)}
+    out["phase_device_ms"] = {
+        name: device_ms(fn) for name, fn in
+        degrade_kernel.phase_calls(key, imgs, scales).items()}
     counts = poisson_counts_reference(seed, imgs, scales)
     rate = imgs * scales[:, None, None]
     out["bound_ms"], out["bound_by"] = degrade_bound_ms(imgs, scales, counts)
-    out["ops_ms"] = 1e3 * degrade_ops(rate, counts) / F32_OPS_PER_S
+    out["ops_ms"] = degrade_ops_ms(degrade_ops(rate, counts))
+    out["bytes_ms"] = 1e3 * (8 * imgs.numel() + 4 * scales.numel()) \
+        / HBM_BYTES_PER_S
     out["small_rate_share"] = float((rate < 10.0).double().mean())
     return out
 
@@ -606,32 +669,55 @@ def degrade_under_capture(imgs: torch.Tensor, scales: torch.Tensor,
     return {"checks": checks, **both_times("captured_", graph.replay)}
 
 
+def _log_degrade_plan(name: str, imgs: torch.Tensor,
+                      device: torch.device) -> dict:
+    """The grids of a call at this shape and what ptxas and the occupancy
+    query give each kernel on this card."""
+    b, h, w = imgs.shape
+    plan = degrade_kernel.degrade_plan(b, h * w)
+    attrs = degrade_kernel.kernel_attributes(device.index or 0)
+    count, rescale = attrs["count"], attrs["rescale"]
+    log("degrade", f"{name}: counting grid {plan.grid} blocks of "
+        f"{degrade_kernel.THREADS} threads ({plan.tiles} an image, "
+        f"{degrade_kernel.TILE} elements each), {count['blocks_per_sm']} "
+        f"an SM, {count['registers']} registers, {count['smem_bytes']} "
+        f"shared bytes, {count['local_bytes']} local bytes; rescale grid "
+        f"{plan.rescale_grid} blocks ({degrade_kernel.RESCALE_TILE} "
+        f"elements each), {rescale['blocks_per_sm']} an SM, "
+        f"{rescale['registers']} registers, {rescale['local_bytes']} local "
+        f"bytes; the rescale a programmatic dependent launch")
+    if count["local_bytes"] or rescale["local_bytes"]:
+        raise AssertionError(f"K2's kernels use local memory (a stack or "
+                             f"spills): {attrs}")
+    return {"grid": plan.grid, "rescale_grid": plan.rescale_grid,
+            "attributes": attrs}
+
+
 def phase_degrade(device: torch.device, b: int = 16,
                   size: int = 512) -> dict:
     """K2 against its plain version on the same Philox stream, and its
-    times on the card; the training batch's numbers lead the result."""
+    times on the card, at the training batch and at constant rates on a
+    batch of its shape; the training batch's numbers lead the result."""
     rng = np.random.default_rng(1)
     imgs_np, scales_np = training_batch(rng, b, size)
     cases = [("training", 7, torch.from_numpy(imgs_np).to(device),
               torch.from_numpy(scales_np).to(device))]
     cases += [(f"constant@{rate}", 11,
-               torch.ones((4, size, size), device=device),
-               torch.full((4,), rate, device=device)) for rate in K2_RATES]
+               torch.ones((b, size, size), device=device),
+               torch.full((b,), rate, device=device)) for rate in K2_RATES]
     card = card_name_and_power() if device.type == "cuda" else ""
     results = []
     for name, seed, imgs, scales in cases:
         res = _compare_degrade(name, seed, imgs, scales, device)
         if device.type == "cuda":
             res.update(_time_degrade(seed, imgs, scales))
-            plan = degrade_kernel.card_plan(
-                device.index or 0, imgs.shape[0],
-                imgs.shape[1] * imgs.shape[2])
             if name == "training":
+                res["plan"] = _log_degrade_plan(name, imgs, device)
                 cap = degrade_under_capture(imgs, scales, (seed, seed + 1))
                 res["captured"] = cap
-                log("degrade", f"{name} under CUDA graph capture (the "
-                    f"cooperative launch captured), seed in a device "
-                    f"tensor: " + ", ".join(
+                log("degrade", f"{name} under CUDA graph capture (memset, "
+                    f"counting kernel, dependent rescale), seed in a "
+                    f"device tensor: " + ", ".join(
                         f"seed {c['seed']}: {c['differing']:.3e} of elements "
                         f"differ, max abs {c['max_abs_err']:.3e}"
                         for c in cap["checks"])
@@ -641,18 +727,20 @@ def phase_degrade(device: torch.device, b: int = 16,
                        for c in cap["checks"]):
                     raise AssertionError(f"captured K2 disagrees with its "
                                          f"plain version: {cap['checks']}")
-            log("degrade", f"{name}: one cooperative launch of {plan.grid} "
-                f"blocks, {plan.ipb} items of {degrade_kernel.TILE} "
-                f"elements each")
+            phases = res["phase_device_ms"]
             log("degrade", f"{name} {tuple(imgs.shape)}: kernel "
-                f"{res['device_ms']:.4f} ms (host-paced {res['ms']:.4f}), "
+                f"{res['device_ms']:.4f} ms (host-paced {res['ms']:.4f}; "
+                f"alone: memset + counting {phases['count']:.4f} ms, "
+                f"rescale {phases['rescale']:.4f} ms), "
                 f"plain {res['plain_ms']:.4f} ms (host-paced), "
                 f"torch.poisson + min/max + rescale "
                 f"{res['library_device_ms']:.4f} ms (host-paced "
-                f"{res['library_ms']:.4f}), bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
-                f"operations alone {res['ops_ms']:.4f} ms); "
-                f"rate < 10 on {res['small_rate_share']:.3f} of the "
-                f"elements; on {card}")
+                f"{res['library_ms']:.4f}), bound {res['bound_ms']:.4f} ms "
+                f"({res['bound_by']} bind: bytes {res['bytes_ms']:.4f} ms, "
+                f"operations {res['ops_ms']:.4f} ms at each unit's rate); "
+                f"share of the bound "
+                f"{res['bound_ms'] / res['device_ms']:.3f}; rate < 10 on "
+                f"{res['small_rate_share']:.3f} of the elements; on {card}")
         results.append(res)
     return {**results[0], "checks": results,
             "max_abs_err": max(r["max_abs_err"] for r in results)}

@@ -6,7 +6,10 @@ For each checkout DIR (default: this one), in the order given (list a
 checkout again for another round, e.g. `--tree _parent . . _parent`):
 K1 (`fused_sepconv`) at the six fused blocks of a flagship forward at
 B=8 and at B=1, and K2 (`fused_poisson_degrade`) at the training
-batch (16, 512, 512). Each time is taken twice: `device_ms`, with the
+batch (16, 512, 512) and on (16, 512, 512) images of constant rate 5
+(all below the CDF sampler's threshold of 10) and 200 (all above), with
+each of its CUDA kernels alone (`phase_ms`) where the checkout has
+`degrade_kernel.phase_calls`. Each time is taken twice: `device_ms`, with the
 calls queued ahead of the card, and host-paced (CUDA events around calls
 issued back to back). Each checkout runs in a process of its own, since
 every checkout names its package `emx_torch`; this file imports nothing
@@ -119,11 +122,23 @@ def measure(tree: str) -> None:
                           "block": "six flagship blocks", "batch": b,
                           "ms": ms, "paced_ms": paced}), flush=True)
 
-    def k2():
-        return fused_poisson_degrade(7, imgs, scales)
-    print(json.dumps({"tree": tree, "kernel": "K2", "batch": 16,
-                      "ms": device_ms(k2), "paced_ms": host_paced_ms(k2)}),
-          flush=True)
+    from emx_torch.ops import degrade_kernel
+    k2_cases = [("training", imgs, scales)] + [
+        (f"constant@{rate}", torch.ones((16, 512, 512), device=device),
+         torch.full((16,), rate, device=device)) for rate in (5.0, 200.0)]
+    for case, x, s in k2_cases:
+        key = degrade_kernel.seed_tensor(7, device)
+
+        def k2():
+            return fused_poisson_degrade(key, x, s)
+        row = {"tree": tree, "kernel": "K2", "case": case, "batch": 16,
+               "ms": device_ms(k2), "paced_ms": host_paced_ms(k2)}
+        # Each CUDA kernel of a call alone, where the checkout has them.
+        if hasattr(degrade_kernel, "phase_calls"):
+            row["phase_ms"] = {
+                name: device_ms(fn) for name, fn in
+                degrade_kernel.phase_calls(key, x, s).items()}
+        print(json.dumps(row), flush=True)
 
 
 def main() -> None:

@@ -22,8 +22,12 @@ On a CUDA tensor the wrapper launches the hand-written kernel in
 Philox words and does the same arithmetic in the same order, so the two
 agree element for element up to the last bit of exp, log and cos.
 
-The kernel is one cooperative launch; `degrade_plan` is its schedule,
-computed here from the shapes and the card's SM count and occupancy.
+A call is a memset and two CUDA kernels on the current stream: the
+counting kernel (a block per 2,048 elements of one image, the counts in
+the output, each image's min and max and its finished blocks by
+atomics) and the rescale, launched as its programmatic dependent, whose
+blocks start on an image once its counting blocks have finished.
+`degrade_plan` is their grids, computed here from the shapes.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ import threading
 import torch
 
 from emx_torch.ops import _build
-from emx_torch.utils.device import sm_count
 
 INV_TERMS = 32
 _MASK = 0xFFFFFFFF
@@ -45,28 +48,42 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85   # Weyl key increments
 
 _count_lock = threading.Lock()
 
-TILE = 4096             # elements per work item (degrade.cu)
+TILE = 2048             # elements of one image a counting block (degrade.cu)
+THREADS = 256           # threads a counting block
+RESCALE_TILE = 16384    # elements of one image a rescale block
 
 
 @dataclasses.dataclass(frozen=True)
 class DegradePlan:
-    tiles: int      # items per image
-    items: int      # B x tiles
-    ipb: int        # items per block, a grid apart
-    grid: int       # blocks of the cooperative launch
+    tiles: int          # counting blocks an image
+    grid: int           # counting blocks: B x tiles
+    rescale_tiles: int  # rescale blocks an image
+    rescale_grid: int   # rescale blocks: B x rescale_tiles
+    smem_bytes: int     # a counting block's static shared memory
 
 
-def degrade_plan(b: int, hw: int, sms: int, blocks_per_sm: int
-                 ) -> DegradePlan:
-    """The kernel's schedule on a card of `sms` SMs, each holding
-    `blocks_per_sm` blocks (the occupancy query): the co-resident grid
-    takes the items in equal shares."""
-    if blocks_per_sm <= 0:
-        raise RuntimeError("the degrade kernel does not fit on an SM")
-    tiles = -(-hw // TILE)
-    items = b * tiles
-    ipb = -(-items // (blocks_per_sm * sms))
-    return DegradePlan(tiles, items, ipb, -(-items // ipb))
+@functools.lru_cache(maxsize=512)
+def degrade_plan(b: int, hw: int) -> DegradePlan:
+    """The grids of one call on a (b, H, W) batch, hw = H * W: a counting
+    block per TILE elements of one image and a rescale block per
+    RESCALE_TILE, as many as the shape needs (the hardware balances
+    them). A counting block keeps, in shared memory, a 16-byte list entry
+    for each of its TILE elements (the small-rate list fills the entries
+    from the front, the large-rate list from the back), a table of
+    (j, 1/j) for the CDF terms (64 rows: a load ahead of the loop's end
+    stays inside), a (min, max) a warp and two counters."""
+    if b <= 0 or hw <= 0:
+        raise ValueError(f"empty batch: {b} images of {hw} elements")
+    if hw >= 2 ** 32:
+        raise ValueError(f"an image of {hw} elements: the kernel counts "
+                         f"elements in 32 bits")
+    tiles, rescale_tiles = -(-hw // TILE), -(-hw // RESCALE_TILE)
+    if b * tiles > 2 ** 31 - 1:
+        raise ValueError(f"{b} images of {hw} elements need more than "
+                         f"2^31 - 1 blocks")
+    smem = TILE * 16 + 2 * INV_TERMS * 8 + 2 * (THREADS // 32) * 4 + 2 * 4
+    return DegradePlan(tiles, b * tiles, rescale_tiles, b * rescale_tiles,
+                       smem)
 
 
 def _mulhilo(a: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -171,7 +188,7 @@ def _launcher():
     fn = _build.load("degrade").lib.emx_poisson_degrade
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -193,24 +210,77 @@ def _seed_value(seed) -> int:
     return _check_seed(seed)
 
 
-@functools.cache
-def _blocks_per_sm(device_index: int) -> int:
-    fn = _build.load("degrade").lib.emx_degrade_occupancy
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+@functools.lru_cache(maxsize=8)
+def kernel_attributes(device_index: int) -> dict:
+    """Of each CUDA kernel of a call on this card (`count`, `rescale`):
+    static shared bytes, registers a thread, local (stack and spill)
+    bytes a thread, and the blocks that fit on an SM."""
+    fn = _build.load("degrade").lib.emx_degrade_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = fn(ctypes.byref(blocks))
+    out = {}
+    for which, name in enumerate(("count", "rescale")):
+        vals = (ctypes.c_int * 4)()
+        with torch.cuda.device(device_index):
+            err = fn(which, vals)
+        if err:
+            raise RuntimeError(f"degrade kernel attributes: CUDA error {err}")
+        out[name] = dict(zip(("smem_bytes", "registers", "local_bytes",
+                              "blocks_per_sm"), vals))
+    return out
+
+
+def division_mismatches(device: torch.device | str) -> tuple[int, int]:
+    """The kernel's division of a CDF term by j against `__fdiv_rn`, on
+    every 32-bit float x and every j in [1, 31] on the card: (the (x, j)
+    pairs whose bits differ, the patterns x that take the multiply path
+    and not the divide)."""
+    fn = _build.load("degrade").lib.emx_degrade_division_mismatches
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    device = torch.device(device)
+    tally = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = fn(tally.data_ptr())
     if err:
-        raise RuntimeError(f"degrade occupancy query failed: CUDA error {err}")
-    return blocks.value
+        raise RuntimeError(f"division check failed: CUDA error {err}")
+    bad, fast = tally.tolist()
+    return bad, fast
 
 
-@functools.lru_cache(maxsize=512)
-def card_plan(device_index: int, b: int, hw: int) -> DegradePlan:
-    """`degrade_plan` on this card, once per shape."""
-    return degrade_plan(b, hw, sm_count(device_index),
-                        _blocks_per_sm(device_index))
+def _check_args(imgs: torch.Tensor, scales: torch.Tensor) -> None:
+    if imgs.dim() != 3:
+        raise ValueError(f"imgs must be (B, H, W), got {tuple(imgs.shape)}")
+    b = imgs.shape[0]
+    if tuple(scales.shape) != (b,):
+        raise ValueError(f"scales must be ({b},), got {tuple(scales.shape)}")
+    if imgs.dtype != torch.float32 or scales.dtype != torch.float32:
+        raise TypeError(f"imgs and scales must be float32, got {imgs.dtype} "
+                        f"and {scales.dtype}")
+    if scales.device != imgs.device:
+        raise ValueError(f"scales on {scales.device}, imgs on {imgs.device}")
+    # Checked on every device, so the CPU tests see what the kernel refuses.
+    if not (imgs.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("fused_poisson_degrade takes contiguous tensors")
+
+
+def _launch(phases: int, seed: torch.Tensor, imgs: torch.Tensor,
+            scales: torch.Tensor, image_offset: int, out: torch.Tensor,
+            minmax: torch.Tensor) -> None:
+    """Phase 1 (memset, counts into `out`), 2 (rescale `out` in place)
+    or 3 (both) of a call, on the current stream."""
+    b, h, w = imgs.shape
+    dev = imgs.device.index if imgs.device.index is not None else \
+        torch.cuda.current_device()
+    plan = degrade_plan(b, h * w)
+    with torch.cuda.device(dev):
+        err = _launcher()(
+            imgs.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            minmax.data_ptr(), b, h * w, seed.data_ptr(), image_offset,
+            plan.tiles, plan.rescale_tiles, phases,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"degrade kernel launch failed: CUDA error {err}")
 
 
 def fused_poisson_degrade(seed, imgs: torch.Tensor, scales: torch.Tensor,
@@ -224,21 +294,10 @@ def fused_poisson_degrade(seed, imgs: torch.Tensor, scales: torch.Tensor,
     the card first; both take the same entry point and draw the same
     words. `image_offset` is the batch's first image in a larger batch
     (an int: a captured launch keeps it). `fused_poisson_degrade.launches`
-    counts kernel launches (under capture, one per captured launch, not
-    per replay)."""
-    if imgs.dim() != 3:
-        raise ValueError(f"imgs must be (B, H, W), got {tuple(imgs.shape)}")
+    counts the calls that launched on the card, each a memset and two
+    CUDA kernels (under capture, one per captured call, not per replay)."""
+    _check_args(imgs, scales)
     b, h, w = imgs.shape
-    if tuple(scales.shape) != (b,):
-        raise ValueError(f"scales must be ({b},), got {tuple(scales.shape)}")
-    if imgs.dtype != torch.float32 or scales.dtype != torch.float32:
-        raise TypeError(f"imgs and scales must be float32, got {imgs.dtype} "
-                        f"and {scales.dtype}")
-    if scales.device != imgs.device:
-        raise ValueError(f"scales on {scales.device}, imgs on {imgs.device}")
-    # Checked on every device, so the CPU tests see what the kernel refuses.
-    if not (imgs.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("fused_poisson_degrade takes contiguous tensors")
     image_offset = _check_offset(image_offset, b)
     if imgs.device.type == "cpu":
         return poisson_degrade_reference(_seed_value(seed), imgs, scales,
@@ -257,23 +316,31 @@ def fused_poisson_degrade(seed, imgs: torch.Tensor, scales: torch.Tensor,
                          "device tensor (seed_tensor)")
     else:
         seed = seed_tensor(seed, imgs.device)
-    dev = imgs.device.index if imgs.device.index is not None else \
-        torch.cuda.current_device()
-    plan = card_plan(dev, b, h * w)
     out = torch.empty_like(imgs)
-    part = torch.empty((2, plan.items), dtype=torch.float32,
-                       device=imgs.device)
-    with torch.cuda.device(dev):
-        err = _launcher()(
-            imgs.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            part.data_ptr(), b, h * w, seed.data_ptr(), image_offset,
-            plan.ipb, plan.grid,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"degrade kernel launch failed: CUDA error {err}")
+    minmax = torch.empty(3 * b, dtype=torch.int32, device=imgs.device)
+    _launch(3, seed, imgs, scales, image_offset, out, minmax)
     with _count_lock:
         fused_poisson_degrade.launches += 1
     return out
 
 
 fused_poisson_degrade.launches = 0
+
+
+def phase_calls(seed: torch.Tensor, imgs: torch.Tensor,
+                scales: torch.Tensor) -> dict:
+    """For timing each CUDA kernel of a call alone on the card: `count`
+    (the memset and the counting kernel) and `rescale` (the rescale
+    kernel, in place on the counts of the call made here first), each a
+    callable that launches it on fixed buffers. Not counted in
+    `fused_poisson_degrade.launches`."""
+    _check_args(imgs, scales)
+    if imgs.device.type != "cuda":
+        raise ValueError("phase_calls launches the kernels on the card")
+    out = torch.empty_like(imgs)
+    minmax = torch.empty(3 * imgs.shape[0], dtype=torch.int32,
+                         device=imgs.device)
+    _launch(3, seed, imgs, scales, 0, out, minmax)
+    return {"count": lambda: _launch(1, seed, imgs, scales, 0, out, minmax),
+            "rescale": lambda: _launch(2, seed, imgs, scales, 0, out,
+                                       minmax)}

@@ -140,18 +140,37 @@ def test_degrade_phase(capsys):
 
 
 def test_degrade_bound():
-    """At the training batch the bound is the bytes: 8 per element at
-    3.35 TB/s; a rate-8 image's loop adds 5 operations per CDF term."""
+    """At the training batch's size, all of it above rate 10, the bound is
+    the operations: Philox's and Box-Muller's 59 INT32 operations an
+    element at the INT32 unit's 64 lanes a clock an SM (14.8 us) outlast
+    the 8 bytes an element at 3.35 TB/s (10.0 us); a rate-8 image's loop
+    adds 6 FP32 operations per CDF term."""
     imgs = torch.full((16, 512, 512), 0.5)
     scales = torch.full((16,), 100.0)   # rate 50: the normal branch
     counts = torch.full_like(imgs, 50.0)
     ms, by = chip_smoke.degrade_bound_ms(imgs, scales, counts)
-    assert by == "bytes"
-    assert ms == pytest.approx(1e3 * (8 * imgs.numel() + 64) / 3.35e12)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 59 * imgs.numel()
+                               / (132 * 64 * 1.98e9))
+    assert ms > 1e3 * (8 * imgs.numel() + 64) / 3.35e12
     small = torch.full((1, 2, 2), 8.0)
     ops = chip_smoke.degrade_ops(small, torch.tensor([[[0.0, 3.0],
                                                        [40.0, 8.0]]]))
-    assert ops == 4 * 102 + 4 * 7 + 5 * (0 + 3 + 31 + 8)
+    assert ops == {"int32": 4 * 56, "mufu": 4,
+                   "fp32": 4 * 12 + 6 * (0 + 3 + 31 + 8)}
+
+
+def test_ptxas_frames():
+    """The build phase reads each kernel's stack and spills from ptxas."""
+    log = """ptxas info    : Compiling entry function '_Z12count_kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z12count_kernelv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 33352 bytes smem
+ptxas info    : Function properties for _Z14rescale_kernelv
+    8 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+"""
+    assert chip_smoke.ptxas_frames(log) == {"_Z12count_kernelv": (0, 0, 0),
+                                            "_Z14rescale_kernelv": (8, 12, 20)}
 
 
 TINY_TRAIN = chip_smoke.TrainSmokeConfig(

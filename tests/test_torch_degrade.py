@@ -17,7 +17,7 @@ from emx.data.degrade import sample_dose_scale as flax_dose_scale
 from emx.utils.image import flip_rotate as flax_flip_rotate
 from emx.ops.degrade_kernel import reference_poisson_degrade
 from emx_torch.data.degrade import denoiser_example, sample_dose_scale
-from emx_torch.ops import _build
+from emx_torch.ops import _build, degrade_kernel
 from emx_torch.ops.degrade_kernel import (TILE, degrade_plan,
                                           fused_poisson_degrade,
                                           philox4x32_10,
@@ -194,51 +194,103 @@ def test_wrapper_checks_and_cpu_path():
 
 def test_kernel_source_is_self_contained():
     """K2 carries its own Philox (no cuRAND, no torch headers; only the
-    toolkit's cooperative groups for its grid-wide sync) and is not built
-    with fast math, which would change expf/logf/cosf and the divisions
-    the plain version repeats."""
+    CUDA runtime, whose launch API gives the rescale its programmatic
+    dependence) and is not built with fast math, which would change
+    expf/logf/cosf and the divisions the plain version repeats."""
     src = (_build.CSRC / "degrade.cu").read_text()
     includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
-    assert includes == ["#include <cooperative_groups.h>",
-                        "#include <cuda_runtime.h>", "#include <cstdint>"]
+    assert includes == ["#include <cuda_runtime.h>", "#include <cstdint>"]
     assert "0xD2511F53u" in src and "emx_poisson_degrade" in src
     assert not any("fast" in f for f in _build.NVCC_FLAGS)
 
 
-@pytest.mark.parametrize("b,hw,ipb,grid", [
-    (16, 512 * 512, 2, 512),     # the training batch
-    (4, 512 * 512, 1, 256),
-    (1, 35, 1, 1),               # (1, 7, 5): one partial item
-    (1000, 35, 2, 500),          # many tiny images, one item each
-    (40, 512 * 512, 5, 512),
-    (64, 512 * 512, 8, 512),
+def _source_constant(name: str) -> str:
+    src = (_build.CSRC / "degrade.cu").read_text()
+    line, = [ln for ln in src.splitlines()
+             if ln.startswith(f"constexpr int {name} = ")]
+    return line.split("=")[1].split(";")[0].strip()
+
+
+def test_degrade_plan_follows_the_source():
+    """The plan's tile sizes are the kernel's: 256 threads of 8 elements
+    a counting block, 16,384 elements a rescale block."""
+    assert _source_constant("THREADS") == str(degrade_kernel.THREADS)
+    assert _source_constant("TILE") == "THREADS * PER_THREAD"
+    assert int(_source_constant("PER_THREAD")) * degrade_kernel.THREADS \
+        == TILE
+    assert _source_constant("RESCALE_TILE") == str(
+        degrade_kernel.RESCALE_TILE)
+    assert _source_constant("INV_TERMS") == str(degrade_kernel.INV_TERMS)
+
+
+def _spans(grid: int, tiles: int, tile: int, hw: int):
+    """(image, first element, end) of each block, as the kernels compute
+    them: block k takes tile k % tiles of image k // tiles."""
+    return [(k // tiles, (k % tiles) * tile, min((k % tiles + 1) * tile, hw))
+            for k in range(grid)]
+
+
+def _covered_once(spans, b: int, hw: int) -> bool:
+    """Whether the blocks' (image, start, end) spans cover every element
+    of every image exactly once."""
+    per_image: dict[int, list[tuple[int, int]]] = {}
+    for image, start, end in spans:
+        assert 0 <= image < b and 0 <= start < end <= hw
+        per_image.setdefault(image, []).append((start, end))
+    if sorted(per_image) != list(range(b)):
+        return False
+    for runs in per_image.values():
+        runs.sort()
+        if runs[0][0] != 0 or runs[-1][1] != hw or any(
+                a[1] != c[0] for a, c in zip(runs, runs[1:])):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("b,hw,tiles,rescale_tiles", [
+    (16, 512 * 512, 128, 16),    # the training batch
+    (4, 512 * 512, 128, 16),
+    (1, 35, 1, 1),               # (1, 7, 5): one partial block each
+    (1000, 35, 1, 1),            # many tiny images, one block each
+    (40, 512 * 512, 128, 16),
+    (3, 50 * 47, 2, 1),          # no whole tile: the second block partial
 ])
-def test_degrade_plan(b, hw, ipb, grid):
-    """The co-resident grid (4 blocks on each of 132 SMs) takes the items
-    in equal shares, as few blocks as that needs."""
-    plan = degrade_plan(b, hw, 132, 4)
-    assert plan.tiles == -(-hw // TILE) and plan.items == b * plan.tiles
-    assert (plan.ipb, plan.grid) == (ipb, grid)
-    assert (plan.grid - 1) * plan.ipb < plan.items <= plan.grid * plan.ipb
-    assert plan.grid <= 4 * 132
-    # The kernel's assignment: block k takes items k, k + grid, ... (ipb
-    # of them, those below `items`): every item exactly once.
-    taken = [k + s * plan.grid for k in range(plan.grid)
-             for s in range(plan.ipb) if k + s * plan.grid < plan.items]
-    assert sorted(taken) == list(range(plan.items))
+def test_degrade_plan(b, hw, tiles, rescale_tiles):
+    """A counting block per 2,048 elements of one image and a rescale
+    block per 16,384, as many as the shape needs: every element in exactly
+    one block of each grid, as the kernels compute their spans."""
+    plan = degrade_plan(b, hw)
+    assert (plan.tiles, plan.rescale_tiles) == (tiles, rescale_tiles)
+    assert (plan.grid, plan.rescale_grid) == (b * tiles, b * rescale_tiles)
+    assert _covered_once(_spans(plan.grid, plan.tiles, TILE, hw), b, hw)
+    assert _covered_once(_spans(plan.rescale_grid, plan.rescale_tiles,
+                                degrade_kernel.RESCALE_TILE, hw), b, hw)
 
 
-def test_degrade_plan_needs_a_block_per_sm():
-    with pytest.raises(RuntimeError, match="does not fit"):
-        degrade_plan(64, 512 * 512, 132, 0)
+def test_degrade_plan_shared_memory_and_lists():
+    """A counting block's shared memory: a 16-byte list entry for each of
+    its 2,048 elements, the CDF terms' (j, 1/j), the warps' (min, max)
+    and two counters: under the 48 KB of static shared memory, and five
+    blocks fit in an H100 SM's 228 KB (1 KB reserved a block). The two
+    lists share one array of TILE entries, which holds every element of
+    any block's tile, the ragged last one too."""
+    plan = degrade_plan(16, 512 * 512)
+    assert plan.smem_bytes == 2048 * 16 + 64 * 8 + 8 * 2 * 4 + 8 == 33352
+    assert plan.smem_bytes <= 48 * 1024
+    assert 5 * (plan.smem_bytes + 1024) <= 228 * 1024
+    for b, hw in ((16, 512 * 512), (3, 50 * 47), (1, 35)):
+        plan = degrade_plan(b, hw)
+        assert all(end - start <= TILE for _, start, end in
+                   _spans(plan.grid, plan.tiles, TILE, hw))
 
 
-def test_degrade_plan_follows_occupancy():
-    """With more blocks per SM the training batch needs fewer items per
-    block; with one block per SM it takes 8."""
-    assert degrade_plan(16, 512 * 512, 132, 8).ipb == 1
-    one = degrade_plan(16, 512 * 512, 132, 1)
-    assert (one.ipb, one.grid) == (8, 128)
+def test_degrade_plan_refuses_what_the_kernel_cannot_launch():
+    with pytest.raises(ValueError, match="empty"):
+        degrade_plan(0, 512 * 512)
+    with pytest.raises(ValueError, match="32 bits"):
+        degrade_plan(1, 2 ** 32)
+    with pytest.raises(ValueError, match="2\\^31"):
+        degrade_plan(2 ** 20, 2 ** 22)
 
 
 def test_dose_scale_matches_emx_in_distribution():

@@ -170,13 +170,11 @@ def test_degrade_kernel_constant_rates(cuda, rate):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(40, 512, 512), (1, 7, 5)], ids=str)
 def test_degrade_kernel_large_and_tiny_batches(cuda, shape):
-    """A batch that gives each block of the co-resident grid several
-    items (40 images of 512x512) and a tiny one (one partial item); each
-    is one launch and identical to the plain version on every element."""
-    dev = torch.cuda.current_device()
-    plan = degrade_kernel.card_plan(dev, shape[0], shape[1] * shape[2])
-    assert plan.grid * plan.ipb >= plan.items
-    assert plan.grid <= sm_count(dev) * degrade_kernel._blocks_per_sm(dev)
+    """A batch of many counting blocks (40 images of 512x512, 128 blocks
+    each) and a tiny one (one partial block); each is one call and
+    identical to the plain version on every element."""
+    plan = degrade_kernel.degrade_plan(shape[0], shape[1] * shape[2])
+    assert plan.grid == shape[0] * plan.tiles
     rng = np.random.default_rng(3)
     imgs = torch.from_numpy(rng.random(shape).astype(np.float32)).to(cuda)
     scales = torch.from_numpy(
@@ -187,6 +185,104 @@ def test_degrade_kernel_large_and_tiny_batches(cuda, shape):
     torch.cuda.synchronize()
     assert fused_poisson_degrade.launches == before + 1
     assert torch.equal(got, poisson_degrade_reference(77, imgs, scales))
+
+
+def _training_batch(device, seed=1, b=16, size=512):
+    """The batch the train step gives K2 (chip_smoke.training_batch)."""
+    rng = np.random.default_rng(seed)
+    imgs = synthetic_micrographs(b, size, seed=int(rng.integers(2 ** 31)))
+    scales = (25.0 + 75.0 * rng.exponential(size=b)).astype(np.float32)
+    return (torch.from_numpy(imgs).to(device),
+            torch.from_numpy(scales).to(device))
+
+
+def _mixed_tiles(device):
+    """Two 512x512 images whose tiles are all small-rate, all large-rate
+    or mixed: the first image's upper half at rate 4 and lower half at
+    rate 300 (whole tiles of each), the second a per-element mix with
+    rates from 0 to 20 and a few exact 10s."""
+    gen = torch.Generator().manual_seed(4)
+    first = torch.cat([torch.full((256, 512), 0.04),
+                       torch.full((256, 512), 3.0)])
+    second = 0.2 * torch.rand((512, 512), generator=gen)
+    second[::7, ::5] = 0.1
+    return (torch.stack([first, second]).to(device),
+            torch.tensor([100.0, 100.0], device=device))
+
+
+DEGRADE_EXACT_CASES = ["training", "ragged", "tile_edge", "one_4096",
+                       "all_small", "all_large", "mixed"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DEGRADE_EXACT_CASES)
+def test_degrade_kernel_identical(cuda, case):
+    """The kernel equals its plain version on every element: the training
+    batch; H x W of no whole tile (50 x 47: two counting blocks, the
+    second partial, and the rescale's scalar path) and of one element
+    past a tile (2049); one 4096x4096 image (8,192 blocks); constant
+    rate 5 (every tile small-rate) and 200 (every tile large-rate); and
+    tiles of each kind and mixed ones."""
+    rng = np.random.default_rng(6)
+    if case == "training":
+        imgs, scales = _training_batch(cuda)
+    elif case == "mixed":
+        imgs, scales = _mixed_tiles(cuda)
+    elif case.startswith("all_"):
+        imgs = torch.ones((16, 512, 512), device=cuda)
+        scales = torch.full((16,), 5.0 if case == "all_small" else 200.0,
+                            device=cuda)
+    else:
+        shape = {"ragged": (3, 50, 47), "tile_edge": (2, 1, 2049),
+                 "one_4096": (1, 4096, 4096)}[case]
+        imgs = torch.from_numpy(rng.random(shape).astype(np.float32)).to(cuda)
+        scales = torch.from_numpy((25 + 75 * rng.exponential(
+            size=shape[0])).astype(np.float32)).to(cuda)
+    got = fused_poisson_degrade(2 ** 40 + 3, imgs, scales)
+    ref = poisson_degrade_reference(2 ** 40 + 3, imgs, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_degrade_kernel_phases(cuda):
+    """The counting kernel alone leaves the plain version's counts in the
+    output; the rescale kernel then gives the whole call's result."""
+    imgs, scales = _training_batch(cuda, b=4)
+    key = degrade_kernel.seed_tensor(21, cuda)
+    out = torch.empty_like(imgs)
+    minmax = torch.empty(12, dtype=torch.int32, device=cuda)
+    degrade_kernel._launch(1, key, imgs, scales, 0, out, minmax)
+    torch.cuda.synchronize()
+    assert torch.equal(out, degrade_kernel.poisson_counts_reference(
+        21, imgs, scales))
+    degrade_kernel._launch(2, key, imgs, scales, 0, out, minmax)
+    torch.cuda.synchronize()
+    assert torch.equal(out, poisson_degrade_reference(21, imgs, scales))
+
+
+@pytest.mark.gpu
+def test_degrade_kernel_attributes(cuda):
+    """What ptxas gave each kernel: the shared memory the plan counts, the
+    five counting blocks an SM that the launch bounds ask for, and no
+    local memory (no stack, no spills)."""
+    attrs = degrade_kernel.kernel_attributes(torch.cuda.current_device())
+    plan = degrade_kernel.degrade_plan(16, 512 * 512)
+    assert attrs["count"]["smem_bytes"] == plan.smem_bytes
+    assert attrs["count"]["blocks_per_sm"] == 5
+    assert attrs["count"]["local_bytes"] == 0
+    assert attrs["rescale"]["local_bytes"] == 0
+
+
+@pytest.mark.gpu
+def test_degrade_division_is_exact(cuda):
+    """The CDF term's division by j without a divide instruction equals
+    __fdiv_rn on all 2^32 floats for every j in [1, 31], and takes the
+    multiply path for the normal range."""
+    bad, fast = degrade_kernel.division_mismatches(cuda)
+    assert bad == 0
+    # |x| in [2^-100, FLT_MAX]: biased exponents 27 to 254, both signs.
+    assert fast == 2 * (254 - 27 + 1) * 2 ** 23
 
 
 @pytest.mark.gpu
@@ -681,6 +777,42 @@ def test_degrade_kernel_image_offset(cuda, offset):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [3, 8])
+def test_degrade_kernel_offset_at_the_training_batch(cuda, offset):
+    """At the training batch, rows [k:] with image_offset=k are the whole
+    launch's rows and the plain version's, on every element."""
+    imgs, scales = _training_batch(cuda)
+    rows, sc = imgs[offset:].contiguous(), scales[offset:].contiguous()
+    whole = fused_poisson_degrade(29, imgs, scales)
+    got = fused_poisson_degrade(29, rows, sc, image_offset=offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole[offset:])
+    assert torch.equal(got, poisson_degrade_reference(29, rows, sc, offset))
+
+
+@pytest.mark.gpu
+def test_degrade_kernel_graph_at_the_training_batch(cuda):
+    """The call captured in a CUDA graph (memset, counting kernel, and the
+    rescale as its programmatic dependent) at the training batch,
+    replayed with two seeds copied in: each replay equals the plain
+    version on every element; the capture counts one call."""
+    imgs, scales = _training_batch(cuda)
+    key = degrade_kernel.seed_tensor(7, cuda)
+    fused_poisson_degrade(key, imgs, scales)
+    torch.cuda.synchronize()
+    before = fused_poisson_degrade.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_poisson_degrade(key, imgs, scales)
+    assert fused_poisson_degrade.launches == before + 1
+    for seed in (7, 8):
+        key.copy_(degrade_kernel.seed_tensor(seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, poisson_degrade_reference(seed, imgs, scales))
 
 
 @pytest.fixture
